@@ -1,0 +1,40 @@
+"""PyTorch/CUDA port of the mixed-precision out-of-core tile Cholesky.
+
+A second package beside the JAX reference ``repro``, with its layout and
+names: the same ``CholeskyConfig -> plan(n, cfg) -> compile() -> OOCSolver``
+surface, the same static op streams and precision plans, and hand-written
+Hopper kernels for the tile ops.  It imports ``torch``, numpy and scipy,
+never ``jax`` or ``repro``.  Entry points run on CUDA unless the caller
+passes ``device="cpu"``.
+
+This slice ports the single-device path: tiling, precision plans,
+schedules, the op-stream executor, blocked solves and the four per-op
+kernels (GEMM, SYRK, TRSM, POTRF).  See ROADMAP.md for what follows.
+"""
+from repro_torch.convert import config_from_reference
+from repro_torch.core.api import (CholeskyConfig, CholeskyPlan, OOCSolver,
+                                  clear_plan_cache, plan, plan_cache_stats)
+from repro_torch.core.cholesky import make_torch_executor, plan_for_matrix
+from repro_torch.core.precision import (LADDERS, PrecisionPlan,
+                                        assign_precision, uniform_plan)
+from repro_torch.core.schedule import (MultiDeviceSchedule, Op, OpKind,
+                                       Schedule, build_multidevice_schedule,
+                                       build_schedule)
+from repro_torch.core.taskgraph import build_task_dag, verify_dispatch
+from repro_torch.core.tiling import TileLayout, from_tiles, random_spd, to_tiles
+from repro_torch.kernels.ops import call_counts, launch_counts, reset_counts
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "__version__",
+    "CholeskyConfig", "CholeskyPlan", "OOCSolver", "plan", "clear_plan_cache",
+    "plan_cache_stats", "config_from_reference",
+    "make_torch_executor", "plan_for_matrix",
+    "LADDERS", "PrecisionPlan", "assign_precision", "uniform_plan",
+    "MultiDeviceSchedule", "Op", "OpKind", "Schedule",
+    "build_multidevice_schedule", "build_schedule",
+    "build_task_dag", "verify_dispatch",
+    "TileLayout", "from_tiles", "random_spd", "to_tiles",
+    "call_counts", "launch_counts", "reset_counts",
+]

@@ -1,0 +1,438 @@
+"""Two-phase planner/executor API: ``CholeskyConfig`` -> plan -> solve.
+
+Port of ``repro/core/api.py`` for the single-device path::
+
+    import repro_torch
+
+    cfg = repro_torch.CholeskyConfig(tb=256, policy="v3")
+    solver = repro_torch.plan(n, cfg).compile()   # device="cuda" by default
+    l = solver.factor(a)                          # numpy or torch [n, n]
+    x = solver.solve(b)
+
+The config mirrors the reference field for field, so one config drives
+both packages (:func:`repro_torch.convert.config_from_reference`).  It
+differs where PyTorch does: ``compute_dtype`` is a torch dtype (``None``
+means float64, the reference's x64 default), ``backend`` is ``"auto"`` or
+``"torch"``, and ``use_pallas`` keeps its name but selects the hand-written
+Hopper tile kernels.  Options whose slice is not ported yet raise
+``NotImplementedError`` naming the ROADMAP item.  There is no jit here:
+``compile()`` builds the op-by-op executor once per plan and device.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .precision import LADDERS, PrecisionPlan, uniform_plan
+from .schedule import (MultiDeviceSchedule, OpKind, build_schedule,
+                       min_cache_slots)
+from .tiling import TileLayout, from_tiles, to_tiles
+
+_POLICIES = ("sync", "async", "v1", "v2", "v3", "v4", "auto")
+_BACKENDS = ("auto", "torch")
+_COMPUTE_DTYPES = (torch.float64, torch.float32)
+_DEFAULT_BLOCK = (4, 4)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class CholeskyConfig:
+    """Frozen, hashable description of one OOC Cholesky pipeline (the
+    reference's fields; see ``repro.core.api.CholeskyConfig``)."""
+
+    tb: int
+    policy: str = "v3"
+    eps_target: Optional[float] = None
+    ladder: str = "tpu"
+    plan: Optional[PrecisionPlan] = None
+    cache_slots: int = 0
+    backend: str = "auto"
+    compute_dtype: Any = None                 # torch dtype; None = float64
+    use_pallas: bool = False                  # hand-written tile kernels
+    fuse_columns: bool = False
+    block: tuple = _DEFAULT_BLOCK
+    ndev: int = 1
+    grid: Optional[tuple] = None
+    hw: Optional[str] = None
+    lookahead: Optional[int] = None
+    host_slots: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "policy", str(self.policy).lower())
+        object.__setattr__(self, "block", tuple(self.block))
+        if self.grid is not None:
+            object.__setattr__(self, "grid", tuple(self.grid))
+        if self.tb < 0:
+            raise ValueError(f"tb must be >= 1, or 0 to let the tuner "
+                             f"pick it, got {self.tb}")
+        if self.policy not in _POLICIES:
+            raise ValueError(f"unknown policy {self.policy!r}; "
+                             f"expected one of {_POLICIES}")
+        if self.backend == "numpy":
+            raise _not_ported("backend='numpy' (the NumPy replays)",
+                              "queue 1, item 2")
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; "
+                             f"expected one of {_BACKENDS}")
+        if self.ladder not in LADDERS:
+            raise ValueError(f"unknown ladder {self.ladder!r}; "
+                             f"expected one of {tuple(LADDERS)}")
+        if self.eps_target is not None and self.eps_target <= 0:
+            raise ValueError(f"eps_target must be > 0, got {self.eps_target}")
+        if self.eps_target is not None and self.plan is not None:
+            raise ValueError("pass either eps_target or an explicit plan, "
+                             "not both")
+        if self.cache_slots < 0:
+            raise ValueError(f"cache_slots must be >= 0 (0 = policy "
+                             f"default), got {self.cache_slots}")
+        if self.ndev < 1:
+            raise ValueError(f"ndev must be >= 1, got {self.ndev}")
+        if (len(self.block) != 2
+                or any(not isinstance(x, int) or x < 1 for x in self.block)):
+            raise ValueError(f"block must be two positive ints, "
+                             f"got {self.block!r}")
+        if self.policy not in ("v4", "auto") and self.block != _DEFAULT_BLOCK:
+            raise ValueError(
+                f"block={self.block} is only meaningful for policy='v4' "
+                f"(got policy={self.policy!r})")
+        if self.lookahead is not None and (
+                isinstance(self.lookahead, bool)
+                or not isinstance(self.lookahead, int) or self.lookahead < 0):
+            raise ValueError(f"lookahead must be an int >= 0 (or None), "
+                             f"got {self.lookahead!r}")
+        if self.host_slots < 0:
+            raise ValueError(f"host_slots must be >= 0, got {self.host_slots}")
+        if self.compute_dtype is not None \
+                and self.compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES} "
+                             f"(or None for float64), got "
+                             f"{self.compute_dtype!r}")
+        # the slices that are not ported yet
+        if self.tb == 0 or self.policy == "auto":
+            raise _not_ported("the autotuner (tb=0, policy='auto')",
+                              "queue 1, item 9")
+        if self.ndev > 1 or self.grid not in (None, (1, 1)) or self.lookahead:
+            raise _not_ported("the multi-device executor (ndev > 1, grid, "
+                              "lookahead)", "queue 1, item 6")
+        if self.host_slots > 0:
+            raise _not_ported("the disk tier (host_slots > 0)",
+                              "queue 1, item 7")
+        if self.fuse_columns:
+            raise _not_ported("the fused column step (fuse_columns=True)",
+                              "queue 1, item 4 and queue 2, item 5")
+        if self.hw is not None:
+            raise _not_ported("the hardware presets (hw)", "queue 1, item 5")
+        if self.cache_slots > 0:
+            floor = min_cache_slots(self.policy, self.block)
+            if self.cache_slots < floor:
+                raise ValueError(
+                    f"policy {self.policy!r}"
+                    + (f" with block={self.block}" if self.policy == "v4"
+                       else "")
+                    + f" needs >= {floor} cache slots"
+                    + (" (h*w + w + 2)" if self.policy == "v4" else "")
+                    + f", got {self.cache_slots}")
+
+    @property
+    def resolved_compute_dtype(self) -> torch.dtype:
+        return self.compute_dtype or torch.float64
+
+    def specialize(self, a) -> "CholeskyConfig":
+        """Freeze the matrix-dependent precision plan into the config.
+
+        ``a`` is a numpy array or a tensor on any device; a tensor's tile
+        norms are taken on its device.  A config that is already static is
+        returned as-is."""
+        if self.eps_target is None:
+            return self
+        from .cholesky import plan_for_matrix
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a, dtype=np.float64)
+        if a.ndim != 2 or a.shape[0] != a.shape[1]:
+            raise ValueError(f"expected a square matrix, got {tuple(a.shape)}")
+        if isinstance(a, torch.Tensor):
+            pplan = plan_for_matrix(a, self.eps_target, self.ladder,
+                                    tb=self.tb)
+        else:
+            pplan = plan_for_matrix(to_tiles(a, self.tb), self.eps_target,
+                                    self.ladder)
+        return dataclasses.replace(self, eps_target=None, plan=pplan)
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class OOCSolver:
+    """Solver over one compiled ``(n, config)`` plan on one device.
+
+    ``factor(a)`` fills this solver's host tile store and replays the
+    plan's schedule; ``solve``/``solve_lower``/``logdet`` run blocked
+    substitution against that store on the solver's device.  Each
+    ``compile()`` returns a fresh solver: the executor is shared through
+    the plan, the factored store is not."""
+
+    def __init__(self, plan: "CholeskyPlan", executor: "_CompiledExecutor"):
+        self._plan = plan
+        self._executor = executor
+        self._tiles = None          # host tile store (compute dtype)
+        self._factored = False      # the store holds a finished factor
+        self._last_io = None        # executed transfers of the last factor
+        self._factor_calls = 0
+        self._solve_calls = 0
+
+    @property
+    def config(self) -> CholeskyConfig:
+        return self._plan.config
+
+    @property
+    def n(self) -> int:
+        return self._plan.n
+
+    @property
+    def device(self) -> torch.device:
+        return self._executor.device
+
+    @property
+    def schedule(self) -> MultiDeviceSchedule:
+        return self._plan.schedule
+
+    @property
+    def tiles(self) -> torch.Tensor:
+        """The factored ``[nt, nt, tb, tb]`` host store (lower tiles hold
+        L; strictly upper tiles hold the input)."""
+        return self._factored_tiles()
+
+    @property
+    def stats(self) -> dict:
+        """``executor_builds`` is plan-wide; ``factor_calls``/
+        ``solve_calls`` count this solver's own use.  ``transfers`` holds
+        the schedule's class-precision LOAD/STORE volumes and, after a
+        ``factor()``, the executed copies, which carry compute-dtype
+        bytes."""
+        sched = self._plan.schedule
+        transfers = {
+            "loads": sched.count(OpKind.LOAD),
+            "stores": sched.count(OpKind.STORE),
+            "h2d_bytes": sched.loads_bytes(),
+            "d2h_bytes": sched.stores_bytes(),
+        }
+        if self._last_io is not None:
+            transfers.update({"executed_" + k: v
+                              for k, v in self._last_io.items()})
+        return {"executor_builds": self._plan.executor_builds,
+                "factor_calls": self._factor_calls,
+                "solve_calls": self._solve_calls,
+                "transfers": transfers}
+
+    def _store(self) -> torch.Tensor:
+        if self._tiles is None:
+            nt, tb = self.schedule.nt, self.config.tb
+            self._tiles = torch.empty(
+                (nt, nt, tb, tb), dtype=self._executor.dtype,
+                pin_memory=self.device.type == "cuda")
+        return self._tiles
+
+    def factor(self, a, materialize: bool = True) -> np.ndarray | None:
+        """Factor SPD ``a`` (numpy, or a tensor on any device) through the
+        cached schedule; returns tril L as a numpy f64 array, or None with
+        ``materialize=False`` (the factor then stays in the tile store for
+        ``solve``/``solve_lower``/``logdet``).  Each call overwrites this
+        solver's previous factor."""
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.asarray(a, dtype=np.float64))
+        if tuple(a.shape) != (self.n, self.n):
+            raise ValueError(
+                f"matrix shape {tuple(a.shape)} does not match the plan's "
+                f"n={self.n}; build a new plan for a different size")
+        tb = self.config.tb
+        nt = self.n // tb
+        host = self._store()
+        self._factored = False
+        for i in range(nt):      # one tile row at a time: bounded temporaries
+            rows = a[i * tb:(i + 1) * tb].to(host.dtype)
+            host[i].copy_(rows.reshape(tb, nt, tb)
+                          .permute(1, 0, 2))
+        self._last_io = self._executor.run(host)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._factored = True
+        self._factor_calls += 1
+        if not materialize:
+            return None
+        return np.tril(from_tiles(host.to(torch.float64).numpy()))
+
+    def _factored_tiles(self) -> torch.Tensor:
+        if not self._factored:
+            raise RuntimeError("no factor available: call factor(a) before "
+                               "solve()/solve_lower()/logdet()")
+        return self._tiles
+
+    def _check_rhs(self, b) -> np.ndarray:
+        if isinstance(b, torch.Tensor):
+            b = b.detach().cpu().numpy()
+        b = np.asarray(b)
+        if b.dtype.kind not in "fiub":
+            raise TypeError(
+                f"rhs dtype {b.dtype} is not real-valued; the tiled "
+                f"substitution runs in float64")
+        if b.ndim not in (1, 2):
+            raise ValueError(
+                f"rhs must be a vector (n,) or stacked columns (n, k), "
+                f"got shape {b.shape}")
+        if b.shape[0] != self.n:
+            raise ValueError(
+                f"rhs has {b.shape[0]} rows but this solver's plan is "
+                f"n={self.n}; build a plan for the rhs size or reshape")
+        if b.ndim == 2 and b.shape[1] == 0:
+            raise ValueError("rhs has 0 columns; nothing to solve")
+        return np.asarray(b, dtype=np.float64)
+
+    def solve(self, b) -> np.ndarray:
+        """Solve ``A x = b`` (``b`` is ``(n,)`` or ``(n, k)``) with the
+        last factored ``A = L L^T``; f64 on the solver's device."""
+        from .solve import cho_solve_tiles
+        x = cho_solve_tiles(self._factored_tiles(), self._check_rhs(b),
+                            self.device)
+        self._solve_calls += 1
+        return x.cpu().numpy()
+
+    def solve_lower(self, b) -> np.ndarray:
+        """Forward substitution ``L z = b`` against the current factor."""
+        from .solve import solve_lower_tiles
+        z = solve_lower_tiles(self._factored_tiles(), self._check_rhs(b),
+                              self.device)
+        self._solve_calls += 1
+        return z.cpu().numpy()
+
+    def logdet(self) -> float:
+        """``log|A|`` of the last factored matrix, from the tile store."""
+        from .solve import logdet_tiles
+        return logdet_tiles(self._factored_tiles(), self.device)
+
+
+class _CompiledExecutor:
+    """The per-plan executor for one device and compute dtype, shared by
+    every solver of the plan.  Holds no factored data."""
+
+    def __init__(self, plan: "CholeskyPlan", device: torch.device):
+        from .cholesky import make_torch_executor
+        cfg = plan.config
+        self.device = device
+        self.dtype = cfg.resolved_compute_dtype
+        self.run = make_torch_executor(plan.single_schedule(), self.dtype,
+                                       use_pallas=cfg.use_pallas,
+                                       device=device)
+        plan.executor_builds += 1
+
+
+@dataclasses.dataclass
+class CholeskyPlan:
+    """Cached static schedule for one ``(n, config)``; ``compile()`` hands
+    out per-call-site solvers over one shared executor per device."""
+
+    n: int
+    config: CholeskyConfig
+    schedule: MultiDeviceSchedule
+    _single: Any = None
+    _executor: Optional[_CompiledExecutor] = None
+    executor_builds: int = 0
+    _compile_lock: Any = dataclasses.field(default_factory=threading.Lock,
+                                           repr=False, compare=False)
+
+    def single_schedule(self):
+        """The flat single-device Schedule backing the ndev=1 degenerate."""
+        if self._single is None:
+            self._single = self.schedule.to_single()
+        return self._single
+
+    def compile(self, device=None) -> OOCSolver:
+        """A fresh solver over this plan's executor on ``device``
+        (``"cuda"`` unless the caller asks for ``"cpu"``; raises when CUDA
+        is asked for and absent).  The executor is built on first call and
+        rebuilt only when the device changes."""
+        device = _resolve_device(device)
+        with self._compile_lock:
+            if self._executor is None or self._executor.device != device:
+                self._executor = _CompiledExecutor(self, device)
+            return OOCSolver(self, self._executor)
+
+
+_PLAN_CACHE: "collections.OrderedDict[tuple, CholeskyPlan]" = \
+    collections.OrderedDict()
+_PLAN_CACHE_MAX = 32
+_PLAN_CACHE_LOCK = threading.RLock()
+_PLAN_CACHE_HITS = 0
+_PLAN_CACHE_MISSES = 0
+
+
+def plan_cache_stats() -> dict:
+    """Hit/miss/occupancy counters of the process-wide plan cache."""
+    with _PLAN_CACHE_LOCK:
+        return {"hits": _PLAN_CACHE_HITS, "misses": _PLAN_CACHE_MISSES,
+                "size": len(_PLAN_CACHE), "max": _PLAN_CACHE_MAX}
+
+
+def clear_plan_cache() -> None:
+    with _PLAN_CACHE_LOCK:
+        _PLAN_CACHE.clear()
+
+
+def plan(n: int, config: CholeskyConfig | None = None,
+         **overrides) -> CholeskyPlan:
+    """Build (or fetch) the static plan for an ``n x n`` factorization.
+
+    ``plan(n, config)`` or ``plan(n, tb=..., ...)``.  Plans are cached by
+    ``(n, config)`` value: equal configs return the *same* plan object.
+    ``eps_target`` configs must be frozen with
+    :meth:`CholeskyConfig.specialize` first.
+    """
+    global _PLAN_CACHE_HITS, _PLAN_CACHE_MISSES
+    if config is None:
+        config = CholeskyConfig(**overrides)
+    elif overrides:
+        config = dataclasses.replace(config, **overrides)
+    if config.eps_target is not None:
+        raise ValueError(
+            "eps_target makes the precision plan matrix-dependent, so it "
+            "cannot be planned ahead of the data: freeze it with "
+            "config.specialize(a) (or pass plan=plan_for_matrix(...))")
+    if config.grid == (1, 1) or config.lookahead == 0:
+        # the reference's canonical forms: both build the default schedule
+        config = dataclasses.replace(config, grid=None, lookahead=None)
+    with _PLAN_CACHE_LOCK:
+        layout = TileLayout(n, config.tb)   # validates n % tb == 0
+        key = (n, config)
+        cached = _PLAN_CACHE.get(key)
+        if cached is not None:
+            _PLAN_CACHE.move_to_end(key)
+            _PLAN_CACHE_HITS += 1
+            return cached
+        _PLAN_CACHE_MISSES += 1
+        pplan = config.plan or uniform_plan(layout.nt, "f64", config.ladder)
+        single = build_schedule(layout.nt, config.tb, config.policy,
+                                config.cache_slots, pplan,
+                                block=config.block)
+        p = CholeskyPlan(n=n, config=config,
+                         schedule=MultiDeviceSchedule.from_single(single),
+                         _single=single)
+        _PLAN_CACHE[key] = p
+        while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+            _PLAN_CACHE.popitem(last=False)
+        return p

@@ -1,0 +1,38 @@
+// Shared helpers of the port's tile kernels: element loads that widen the
+// storage types to f32, the f32 -> storage narrowing, and a warp sum.
+//
+// Every kernel computes in f32 with FFMA only (no tensor cores, so no TF32):
+// the precision classifier assumes the f32 class rounds at 2^-24
+// (core/precision.py, EPS["f32"]).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+
+// dtype codes, mirrored by repro_torch/kernels/_build.py (DTYPE_CODES)
+enum DType : int { DT_F32 = 0, DT_BF16 = 1, DT_F8E4M3 = 2 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) {
+  return static_cast<float>(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}

@@ -1,0 +1,85 @@
+"""Tile-op dispatch over the hand-written kernels (port of repro.kernels.ops).
+
+Dispatch rule, as in the reference: f64 tiles take the stock path (here
+PyTorch's own ``cholesky``/``solve_triangular``/``@``, as the reference
+leaves them to XLA); every other tile goes to its kernel's wrapper, which
+launches the CUDA kernel on a CUDA tensor and runs the plain version on a
+CPU tensor.
+
+Two counters: :func:`call_counts` counts every tile op dispatched here,
+whatever the device (the reference's ``tile_op`` count);
+:func:`launch_counts` counts CUDA kernel launches only, one per launch,
+kept by each kernel's wrapper.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import mxp_gemm as _gemm
+from . import potrf as _potrf
+from . import syrk as _syrk
+from . import trsm as _trsm
+from .ref import cholesky_nan
+
+KERNELS = {"mxp_gemm_update": _gemm, "syrk_update": _syrk, "trsm": _trsm,
+           "potrf": _potrf}
+
+#: the stock f64 path: the same functions the reference's XLA path runs
+STOCK = {
+    "potrf": lambda c: cholesky_nan(0.5 * (c + c.T)),
+    "trsm": lambda l, c: torch.linalg.solve_triangular(l.T, c, upper=True,
+                                                       left=False),
+    "syrk": lambda c, a: c - a @ a.T,
+    "gemm": lambda c, a, b: c - a @ b.T,
+}
+
+_CALLS = {name: 0 for name in KERNELS}
+
+
+def launch_counts() -> dict:
+    """CUDA kernel launches per kernel since the last reset."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def call_counts() -> dict:
+    """Tile ops dispatched per kernel since the last reset (any device)."""
+    return dict(_CALLS)
+
+
+def reset_counts() -> None:
+    for name, mod in KERNELS.items():
+        mod.launches = 0
+        _CALLS[name] = 0
+
+
+def _is_f64(*xs) -> bool:
+    return any(x.dtype == torch.float64 for x in xs)
+
+
+def potrf(a):
+    _CALLS["potrf"] += 1
+    if _is_f64(a):
+        return STOCK["potrf"](a)
+    return _potrf.potrf(a)
+
+
+def trsm(l, c):
+    _CALLS["trsm"] += 1
+    if _is_f64(l, c):
+        return STOCK["trsm"](l, c)
+    return _trsm.trsm(l, c)
+
+
+def syrk_update(c, a):
+    _CALLS["syrk_update"] += 1
+    if _is_f64(c, a):
+        return STOCK["syrk"](c, a)
+    return _syrk.syrk_update(c, a)
+
+
+def gemm_update(c, a, b):
+    _CALLS["mxp_gemm_update"] += 1
+    if _is_f64(c, a, b):
+        return STOCK["gemm"](c, a, b)
+    return _gemm.mxp_gemm_update(c, a, b)
+
