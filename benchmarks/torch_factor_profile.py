@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where one factorization's time goes on the card (the PyTorch/CUDA port).
 
-    python3 benchmarks/torch_factor_profile.py [--n 32768] [--tb 512]
+    python3 benchmarks/torch_factor_profile.py [--n 32768] [--tb 512] [--fuse]
 
 Runs the configuration of ``chip_smoke.py``'s main path (seeded SPD matrix
 x x^T / n + 2 I on the card, policy v3, ladder ``gpu``, ``eps_target=1e-6``
-specialised, ``use_pallas=True``, f32 compute) and reports:
+specialised, ``use_pallas=True``, f32 compute; ``--fuse`` adds
+``fuse_columns=True``) and reports:
 
 * ``factor_s``: wall seconds of ``OOCSolver.factor`` (unprofiled, after one
   warm-up factorization);
@@ -17,7 +18,8 @@ specialised, ``use_pallas=True``, f32 compute) and reports:
   device intervals do not overlap and their sum is their union);
 * the achieved H2D rate of the LOAD copies.
 
-Needs a CUDA device; writes ``chiprun_out/torch_factor_profile.json``.
+Needs a CUDA device; writes ``chiprun_out/torch_factor_profile.json``
+(``torch_factor_profile_fused.json`` with ``--fuse``).
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=32768)
     ap.add_argument("--tb", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fuse", action="store_true",
+                    help="one fused launch per column step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_factor_profile: needs a CUDA device", file=sys.stderr)
@@ -59,7 +63,7 @@ def main() -> int:
     a = 0.5 * (a + a.T)
     cfg = repro_torch.CholeskyConfig(
         tb=tb, policy="v3", ladder="gpu", eps_target=1e-6, use_pallas=True,
-        compute_dtype=torch.float32).specialize(a)
+        compute_dtype=torch.float32, fuse_columns=args.fuse).specialize(a)
     solver = repro_torch.plan(n, cfg).compile(device=dev)
     nops = sum(len(s) for s in solver.schedule.streams)
 
@@ -94,7 +98,7 @@ def main() -> int:
                  if "HtoD" in r["name"] or "Host to Device" in r["name"])
     io = solver.stats["transfers"]
     out = {
-        "card": card, "n": n, "tb": tb, "ops": nops,
+        "card": card, "n": n, "tb": tb, "ops": nops, "fuse_columns": args.fuse,
         "factor_s": factor_s, "enqueue_s": enqueue_s, "run_s": run_s,
         "enqueue_us_per_op": enqueue_s / nops * 1e6,
         "profiled_wall_s": prof_wall_s, "device_busy_ms": busy_ms,
@@ -106,8 +110,8 @@ def main() -> int:
     }
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
-    (outdir / "torch_factor_profile.json").write_text(json.dumps(out,
-                                                                 indent=1))
+    name = "torch_factor_profile" + ("_fused" if args.fuse else "")
+    (outdir / f"{name}.json").write_text(json.dumps(out, indent=1))
     print(card)
     for r in rows[:15]:
         print(f"{r['device_ms']:12.3f} ms {r['count']:8d}  {r['name']}")

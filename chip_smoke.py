@@ -6,18 +6,30 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: the four tile kernels from ``src/repro_torch/kernels/csrc``, one
+2. build: the five kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all at once;
-3. kernel check: each kernel against its plain PyTorch version on the card
-   at the main path's tile size (f32) and at bf16 (fp8 operands for the
-   GEMM), with the tolerances of ``tests/test_kernels.py``, and its time
-   beside the plain version's, one PyTorch library call's and its bound;
+3. kernel check: each per-op kernel against its plain PyTorch version on
+   the card at the main path's tile size (f32) and at bf16 (fp8 operands
+   for the GEMM), with the tolerances of ``tests/test_kernels.py``, and its
+   time beside the plain version's, one PyTorch library call's and its
+   bound; then the fused column step against its plain version: every
+   storage class in f32 and f64, the epilogue bitwise, f32 at the main
+   path's mid-factorization shape (R = K = 32) and f64 at R = K = 8, timed
+   beside its plain version, its bound and the four per-op kernels doing
+   the same column step;
 4. main path: a seeded SPD matrix built on the card, planned with an
    ``eps_target`` precision plan and factored through ``plan(...).compile()``
    with the hand-written kernels (``use_pallas=True``) in f32; then solve,
    logdet, and the checks of the launch counts, the transfers and the
-   accuracy against ``torch.linalg.cholesky`` in f64;
-5. the kernels line (JSON) and the last line,
+   accuracy against ``torch.linalg.cholesky`` in f64.  The same matrix is
+   then factored with ``fuse_columns=True``: one fused launch per column
+   step and no per-op launch, under the same checks;
+5. mixed precision: a Kac-Murdock-Szego matrix factored in f64 through the
+   fused path on the ``gpu-scaled`` ladder (at least three classes, the
+   scaled FP8 one among them), held against ``torch.linalg.cholesky`` and,
+   tile by tile, against the unfused port; the same plan computed in f32
+   must fail that tile check;
+6. the kernels line (JSON) and the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
@@ -39,8 +51,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit:
-# f32 outside the tensor cores, and HBM3 bandwidth.
+# f32 outside the tensor cores (the kernels keep f32's 2^-24, so no TF32),
+# f64 on the FP64 tensor cores (DMMA, IEEE f64; 34 TFLOP/s outside them),
+# and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 KERNEL_META = {
@@ -52,6 +67,8 @@ KERNEL_META = {
              "src/repro/kernels/trsm.py:34"),
     "potrf": ("src/repro_torch/kernels/csrc/potrf.cu",
               "src/repro/kernels/potrf.py:41"),
+    "fused_column_step": ("src/repro_torch/kernels/csrc/fused_column.cu",
+                          "src/repro/kernels/fused_column.py:173"),
 }
 _OP_OF = {"mxp_gemm_update": "GEMM", "syrk_update": "SYRK", "trsm": "TRSM",
           "potrf": "POTRF"}
@@ -160,36 +177,230 @@ def kernel_checks(tb: int, dev, g) -> dict:
     return results
 
 
-def main_path(n: int, tb: int, dev, seed: int) -> dict:
-    import repro_torch
-    from repro_torch.core.schedule import OpKind
+# storage classes of the fused epilogue, and their unit roundoff
+# (repro_torch.core.precision.EPS)
+LADDER = ("f64", "f32", "f16", "bf16", "f8e4m3", "f8e4m3s")
+EPS = {"f64": 2.0 ** -53, "f32": 2.0 ** -24, "f16": 2.0 ** -11,
+       "bf16": 2.0 ** -8, "f8e4m3": 2.0 ** -4, "f8e4m3s": 2.0 ** -4}
+# f32 rounding flips a later tile of the mixed-precision run may inherit
+FLIPS = 4
+
+
+def _column(r_tiles, k_hist, tb, with_diag, dt, dev, g):
+    """Column-step operands shaped like the executor's group: the diagonal
+    SPD (2 tb I + G G^T / tb), history entries N(0, 1/tb), so that the
+    wave moves every entry by O(sqrt(K / tb))."""
+    spd = _spd(tb, g, dev, torch.float64) * tb
+    c = torch.randn(r_tiles, tb, tb, generator=g, device=dev,
+                    dtype=torch.float64)
+    if with_diag:
+        c[0] = spd
+    hist = torch.randn(r_tiles, k_hist, tb, tb, generator=g, device=dev,
+                       dtype=torch.float64) / math.sqrt(tb)
+    bhist = hist[0].clone() if with_diag else torch.randn(
+        k_hist, tb, tb, generator=g, device=dev,
+        dtype=torch.float64) / math.sqrt(tb)
+    l_kk = torch.linalg.cholesky(spd)
+    return [x.to(dt).contiguous() for x in (c, hist, bhist, l_kk)]
+
+
+def _fused_tol(cls, tb, dt):
+    """One accumulation-order ulp may move a value across a class quantum
+    (tests/test_kernel_numerics.py::_tol): 4 EPS[class] of a row's scale;
+    in f32 the factor and the solve carry a few tb 2^-24 too."""
+    work = 1e-12 if dt == torch.float64 else 4 * tb * 2.0 ** -24
+    return max(work, 4 * EPS[cls])
+
+
+def _row_ratio(got, want, tol):
+    """The worst row's max|got - want| over ``tol`` times that row's own
+    max|want|: each row is held at its own scale."""
+    err = (got.double() - want.double()).abs().amax(dim=(1, 2))
+    scale = want.double().abs().amax(dim=(1, 2)).clamp_min(1e-300)
+    return float((err / (tol * scale)).max())
+
+
+def _fused_cost(r_tiles, k_hist, tb, with_diag, itemsize, peak):
+    """The least time for one step: flops of the wave (the diagonal row's
+    only its lower triangle, a SYRK), the row solves and the factor; bytes
+    of each input read once and the output written once."""
+    flops = ((2.0 * r_tiles - with_diag) * k_hist * tb ** 3
+             + (r_tiles - with_diag) * tb ** 3 + with_diag * tb ** 3 / 3.0)
+    tiles = 2 * r_tiles + r_tiles * k_hist + k_hist + (not with_diag)
+    nbytes = tiles * tb * tb * itemsize
+    bound_f = flops / peak * 1e3
+    bound_b = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(bound_f, bound_b),
+            "bound_by": "operations" if bound_f >= bound_b else "bytes"}
+
+
+def fused_checks(tb: int, dev, g) -> dict:
+    """The fused column step against its plain version: every class in f32
+    and f64, the epilogue bitwise, and the main path's shapes, timed."""
+    from repro_torch.kernels import fused_column as fc
+    from repro_torch.kernels import mxp_gemm, potrf, syrk, trsm
+    results = {}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain version in f32
+    try:
+        # every class through the epilogue, both variants, both types
+        for dt in (torch.float32, torch.float64):
+            for with_diag in (True, False):
+                args = _column(4, 2, tb, with_diag, dt, dev, g)
+                for cls in LADDER:
+                    ids = [LADDER.index(cls)] * 4
+                    kw = dict(ladder=LADDER, with_diag=with_diag)
+                    got = fc.fused_column_step(*args, ids, **kw)
+                    want = fc.fused_column_step_ref(*args, ids, **kw)
+                    torch.cuda.synchronize()
+                    err = float((got.double() - want.double()).abs().max())
+                    tol = _fused_tol(cls, tb, dt)
+                    ratio = _row_ratio(got, want, tol)
+                    tag = (f"fused_column_step[{str(dt)[6:]},{cls},"
+                           f"diag={int(with_diag)}]")
+                    log(f"kernel {tag}: max_abs_err {err:.3e}, worst row's "
+                        f"error / ({tol:.1e} max|row|) {ratio:.3e}")
+                    require(ratio <= 1.0, f"{tag}: row error ratio {ratio}")
+                    results[tag] = {"max_abs_err": err, "tol_per_row": tol,
+                                    "row_ratio": ratio}
+            # the epilogue bitwise: K = 0, no diagonal, l_kk = I, so the
+            # solve returns C exactly and the output is the class round
+            ids = list(range(-1, len(LADDER)))
+            mag = 10.0 ** (torch.rand(len(ids), tb, tb, generator=g,
+                                      device=dev, dtype=torch.float64)
+                           * 18 - 12)
+            sign = torch.randint(0, 2, mag.shape, generator=g, device=dev)
+            c = (mag * (2 * sign - 1)).to(dt)
+            c.view(len(ids), -1)[:, :6] = torch.tensor(
+                [448.0, 455.0, 464.0, 470.0, 1.0 + 2.0 ** -11, -0.0],
+                dtype=dt, device=dev)
+            got = fc.fused_column_step(
+                c, c.new_empty((len(ids), 0, tb, tb)), c.new_empty((0, tb, tb)),
+                torch.eye(tb, dtype=dt, device=dev), ids, ladder=LADDER,
+                with_diag=False)
+            torch.cuda.synchronize()
+            bits = torch.int32 if dt == torch.float32 else torch.int64
+            for r, cls_id in enumerate(ids):
+                want = fc._epilogue(c[r], cls_id, LADDER)
+                nan = torch.isnan(want)
+                same = (torch.equal(torch.isnan(got[r]), nan) and torch.equal(
+                    got[r][~nan].view(bits), want[~nan].view(bits)))
+                name = "none" if cls_id < 0 else LADDER[cls_id]
+                require(same, f"fused epilogue {dt} {name} is not bitwise "
+                        f"the plain class round")
+            log(f"kernel fused_column_step epilogue [{str(dt)[6:]}]: bitwise "
+                f"equal to the class round for none + {len(LADDER)} classes")
+
+        # two phases alone, at the main path's tile: the in-launch factor
+        # (R = 1, K = 0) and one tile's row solves (R = 1, K = 0, l_kk)
+        for dt in (torch.float32, torch.float64):
+            for with_diag in (True, False):
+                args = _column(1, 0, tb, with_diag, dt, dev, g)
+                kw = dict(ladder=LADDER, with_diag=with_diag)
+                ms = time_ms(lambda: fc.fused_column_step(*args, [-1], **kw),
+                             5, 1)
+                tag = (f"fused_column_step[{str(dt)[6:]},"
+                       f"{'factor' if with_diag else 'solve'} phase]")
+                results[tag] = {"ms": ms}
+                log(f"kernel {tag}: {ms:.4f} ms")
+
+        # the main path's shapes: f32 mid-factorization, f64 smaller
+        for dt, r_tiles, k_hist, peak in ((torch.float32, 32, 32,
+                                           PEAK_F32_FLOPS),
+                                          (torch.float64, 8, 8,
+                                           PEAK_F64_FLOPS)):
+            for with_diag in (True, False):
+                args = _column(r_tiles, k_hist, tb, with_diag, dt, dev, g)
+                ids = [LADDER.index("f32")] * r_tiles
+                kw = dict(ladder=LADDER, with_diag=with_diag)
+                got = fc.fused_column_step(*args, ids, **kw)
+                want = fc.fused_column_step_ref(*args, ids, **kw)
+                torch.cuda.synchronize()
+                err = float((got.double() - want.double()).abs().max())
+                tol = _fused_tol("f32", tb, dt)
+                ratio = _row_ratio(got, want, tol)
+                tag = (f"fused_column_step[{str(dt)[6:]},R={r_tiles},"
+                       f"K={k_hist},diag={int(with_diag)}]")
+                require(ratio <= 1.0, f"{tag}: row error ratio {ratio}")
+                row = {"dtype": str(dt)[6:], "max_abs_err": err,
+                       "tol_per_row": tol, "row_ratio": ratio,
+                       **_fused_cost(r_tiles, k_hist, tb, with_diag,
+                                     args[0].element_size(), peak)}
+                if with_diag:       # timed: the diagonal's step
+                    row["ms"] = time_ms(
+                        lambda: fc.fused_column_step(*args, ids, **kw), 3, 1)
+                    row["plain_ms"] = time_ms(
+                        lambda: fc.fused_column_step_ref(*args, ids, **kw), 3,
+                        1)
+                if with_diag and dt == torch.float32:
+                    c, hist, bhist, _ = args
+
+                    def unfused():
+                        d = c[0]
+                        for kk in range(k_hist):
+                            d = syrk.syrk_update(d, hist[0, kk])
+                        lf = potrf.potrf(d)
+                        for r in range(1, r_tiles):
+                            x = c[r]
+                            for kk in range(k_hist):
+                                x = mxp_gemm.mxp_gemm_update(x, hist[r, kk],
+                                                             bhist[kk])
+                            trsm.trsm(lf, x)
+                    row["unfused_ms"] = time_ms(unfused, 2, 1)
+                results[tag] = row
+                log(f"kernel {tag}: " + json.dumps(row))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return results
+
+
+def make_spd(n: int, dev, seed: int) -> torch.Tensor:
+    """The main path's seeded SPD matrix, x x^T / n + 2 I, on the card."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(n, n, generator=g, device=dev, dtype=torch.float64)
     a = x @ x.T / n + 2.0 * torch.eye(n, device=dev, dtype=torch.float64)
     del x
-    a = 0.5 * (a + a.T)
+    return 0.5 * (a + a.T)
+
+
+def main_path(a: torch.Tensor, lref: torch.Tensor, tb: int, dev, seed: int,
+              fuse: bool) -> dict:
+    import repro_torch
+    from repro_torch.core.schedule import OpKind
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n = a.shape[0]
+    tag = "fused" if fuse else "main"
     eps_target = 1e-6
     t0 = time.perf_counter()
     cfg = repro_torch.CholeskyConfig(
         tb=tb, policy="v3", ladder="gpu", eps_target=eps_target,
-        use_pallas=True, compute_dtype=torch.float32).specialize(a)
+        use_pallas=True, compute_dtype=torch.float32,
+        fuse_columns=fuse).specialize(a)
     solver = repro_torch.plan(n, cfg).compile(device=dev)
     sched = solver.schedule
     plan_s = time.perf_counter() - t0
     hist = cfg.plan.histogram()
     nops = sum(len(s) for s in sched.streams)
-    log(f"main: n={n} tb={tb} nt={n // tb} ops={nops} "
+    log(f"{tag}: n={n} tb={tb} nt={n // tb} ops={nops} fuse_columns={fuse} "
         f"plan+compile {plan_s:.2f}s precision histogram {hist}")
 
-    repro_torch.reset_counts()       # the main path's launches only
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    repro_torch.reset_counts()       # this run's launches only
     t0 = time.perf_counter()
     solver.factor(a, materialize=False)
     factor_s = time.perf_counter() - t0
     launches = repro_torch.launch_counts()
-    want = {name: sched.count(OpKind[_OP_OF[name]]) for name in launches}
-    log(f"main: factor {factor_s:.3f}s, {n ** 3 / 3 / factor_s / 1e12:.3f} "
-        f"TFLOP/s (n^3/3); launches {launches}; schedule {want}")
-    require(launches == want, f"launches {launches} != schedule {want}")
+    peak_mib = (torch.cuda.max_memory_allocated(dev) - base_mem) / 2 ** 20
+    if fuse:      # one launch per column step, no per-op launch
+        want = {**dict.fromkeys(launches, 0), "fused_column_step": n // tb}
+    else:
+        want = {name: sched.count(OpKind[_OP_OF[name]]) if name in _OP_OF
+                else 0 for name in launches}
+    log(f"{tag}: factor {factor_s:.3f}s, {n ** 3 / 3 / factor_s / 1e12:.3f} "
+        f"TFLOP/s (n^3/3); launches {launches}; want {want}; device memory "
+        f"beyond the input {peak_mib:.0f} MiB at peak")
+    require(launches == want, f"launches {launches} != {want}")
 
     io = solver.stats["transfers"]
     itemsize = torch.finfo(torch.float32).bits // 8
@@ -199,7 +410,7 @@ def main_path(n: int, tb: int, dev, seed: int) -> dict:
             and io["executed_h2d_bytes"] == io["executed_h2d_ops"] * tile_bytes
             and io["executed_d2h_bytes"] == io["executed_d2h_ops"] * tile_bytes,
             f"executed transfers {io} do not match the schedule")
-    log(f"main: executed H2D {io['executed_h2d_bytes']} B / D2H "
+    log(f"{tag}: executed H2D {io['executed_h2d_bytes']} B / D2H "
         f"{io['executed_d2h_bytes']} B (f32 tiles); schedule (class "
         f"precision) loads_bytes {sched.loads_bytes()} stores_bytes "
         f"{sched.stores_bytes()}")
@@ -210,7 +421,6 @@ def main_path(n: int, tb: int, dev, seed: int) -> dict:
     # eps_target. So L carries about max(eps_target, 2^-24 sqrt(n)) of
     # max|A| for a well-conditioned A (kappa ~ 2 here); the bound allows
     # 64 times that (6.9e-4 at n = 32768).
-    lref = torch.linalg.cholesky(a)
     nt = n // tb
     err = 0.0
     for i in range(nt):
@@ -222,7 +432,7 @@ def main_path(n: int, tb: int, dev, seed: int) -> dict:
     amax = float(a.abs().max())
     rel_l = err / amax
     bound_l = 64 * max(eps_target, 2.0 ** -24 * math.sqrt(n))
-    log(f"main: max|L - chol64(A)|/max|A| = {rel_l:.3e} (bound {bound_l:.1e})")
+    log(f"{tag}: max|L - chol64(A)|/max|A| = {rel_l:.3e} (bound {bound_l:.1e})")
     require(math.isfinite(rel_l) and rel_l < bound_l, f"factor error {rel_l}")
 
     # solve: relative residual ||A x - b|| / (||A|| ||x||) of the f64
@@ -234,7 +444,7 @@ def main_path(n: int, tb: int, dev, seed: int) -> dict:
     solve_s = time.perf_counter() - t0
     res = float(torch.linalg.norm(a @ xs - b) /
                 (torch.linalg.norm(a) * torch.linalg.norm(xs)))
-    log(f"main: solve (4 rhs) {solve_s:.3f}s relative residual {res:.3e} "
+    log(f"{tag}: solve (4 rhs) {solve_s:.3f}s relative residual {res:.3e} "
         f"(bound {bound_l:.1e})")
     require(math.isfinite(res) and res < bound_l, f"solve residual {res}")
 
@@ -243,10 +453,11 @@ def main_path(n: int, tb: int, dev, seed: int) -> dict:
     ld = solver.logdet()
     ld_ref = 2.0 * float(torch.log(torch.diagonal(lref)).sum())
     ld_err = abs(ld - ld_ref) / n
-    log(f"main: logdet {ld:.6f} vs {ld_ref:.6f}, error/n {ld_err:.3e}")
+    log(f"{tag}: logdet {ld:.6f} vs {ld_ref:.6f}, error/n {ld_err:.3e}")
     require(ld_err < bound_l, f"logdet error {ld_err}")
-    return {"n": n, "tb": tb, "nt": nt, "ops": nops,
+    return {"n": n, "tb": tb, "nt": nt, "ops": nops, "fuse_columns": fuse,
             "precision_histogram": hist, "factor_s": factor_s,
+            "peak_mib_beyond_input": peak_mib,
             "tflops_n3_over_3": n ** 3 / 3 / factor_s / 1e12,
             "launches": launches, "schedule_counts": want,
             "transfers": io, "rel_factor_err": rel_l, "bound": bound_l,
@@ -254,10 +465,121 @@ def main_path(n: int, tb: int, dev, seed: int) -> dict:
             "logdet_err_per_n": ld_err, "plan_compile_s": plan_s}
 
 
+def mxp_fused(n: int, tb: int, dev) -> dict:
+    """A mixed-precision plan end to end on the card: a Kac-Murdock-Szego
+    matrix rho^|i-j| in f64 through the fused path on the ``gpu-scaled``
+    ladder, against the f64 factor and, tile by tile, the unfused port."""
+    import dataclasses
+
+    import repro_torch
+    rho, eps_target = 0.99, 1e-6
+    nt = n // tb
+    idx = torch.arange(n, device=dev, dtype=torch.float64)
+    a = rho ** (idx[:, None] - idx[None, :]).abs()
+    del idx
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, policy="v3", ladder="gpu-scaled", eps_target=eps_target,
+        use_pallas=True, fuse_columns=True).specialize(a)
+    hist = cfg.plan.histogram()
+    log(f"mxp: n={n} tb={tb} KMS rho={rho} eps_target={eps_target} "
+        f"precision histogram {hist}")
+    require(sum(v > 0 for v in hist.values()) >= 3
+            and hist.get("f8e4m3s", 0) > 0,
+            f"the plan {hist} needs three classes, f8e4m3s among them")
+
+    def factor(c):
+        solver = repro_torch.plan(n, c).compile(device=dev)
+        repro_torch.reset_counts()
+        t0 = time.perf_counter()
+        solver.factor(a, materialize=False)
+        secs = time.perf_counter() - t0
+        tiles = solver.tiles.to(dev)
+        lo = tiles.permute(0, 2, 1, 3).reshape(n, n)
+        return torch.tril(lo), secs, repro_torch.launch_counts()
+
+    lf, fused_s, launches = factor(cfg)
+    want = {**dict.fromkeys(launches, 0), "fused_column_step": nt}
+    require(launches == want, f"mxp launches {launches} != {want}")
+    lu, unfused_s, _ = factor(dataclasses.replace(cfg, fuse_columns=False))
+    # the control: the same plan with every tile op in f32, so the f64
+    # tiles carry f32 roundoff; the tile check below must reject it
+    lc, _, _ = factor(dataclasses.replace(cfg, compute_dtype=torch.float32))
+    lref = torch.linalg.cholesky(a)
+
+    # the plan's own guarantee, held as the reference's tests hold it
+    # (tests/test_scaled_fp8.py): ||A - L L^T||_F / ||A||_F <= eps_target
+    backward = float(torch.linalg.norm(lf @ lf.T - a) / torch.linalg.norm(a))
+    # against the f64 factor: to first order a factor's relative error is at
+    # most kappa_2(A) times the backward error, and a KMS matrix's
+    # eigenvalues lie in ((1-rho)/(1+rho), (1+rho)/(1-rho))
+    kappa = ((1 + rho) / (1 - rho)) ** 2
+    forward = float((lf - lref).abs().max() / lref.abs().max())
+
+    # tile by tile against the unfused port: the same ops and the same
+    # roundings in another accumulation order (the fused kernel against
+    # cuBLAS/cuSOLVER in f64).  A tile of class c differs by that order, or
+    # by one quantum of c where the order moved a value across a rounding
+    # boundary: max(1e-12, 4 EPS[c]) max|L|, the reference's _tol
+    # (tests/test_kernel_numerics.py).  A flip also reaches the tiles that
+    # read the flipped one.  The order differences are ~1e-14 of a value,
+    # so a flip is likely only in f32 tiles (about one in 10^7 f32 values
+    # against one in 10^10 f16 values), and each later tile is allowed
+    # FLIPS f32 quanta of the largest f32 tile: FLIPS 4 EPS[f32]
+    # max|L_f32 tile|.  The f32 control must fail this check.
+    scale = float(lu.abs().max())
+
+    def blk(l, i, j):
+        return l[i * tb:(i + 1) * tb, j * tb:(j + 1) * tb]
+
+    flip = max([4 * EPS["f32"] * float(blk(lu, i, j).abs().max())
+                for i in range(nt) for j in range(i + 1)
+                if cfg.plan.name(i, j) == "f32"], default=0.0)
+
+    def tile_check(l):
+        worst, by_class = 0.0, {}
+        for i in range(nt):
+            for j in range(i + 1):
+                cls = cfg.plan.name(i, j)
+                d = float((blk(l, i, j) - blk(lu, i, j)).abs().max())
+                by_class[cls] = max(by_class.get(cls, 0.0), d / scale)
+                allow = max(1e-12, 4 * EPS[cls]) * scale + FLIPS * flip
+                worst = max(worst, d / allow)
+        return worst, by_class
+
+    worst, by_class = tile_check(lf)
+    ctrl, ctrl_by_class = tile_check(lc)
+    log(f"mxp: fused factor {fused_s:.3f}s ({launches['fused_column_step']} "
+        f"launches), unfused {unfused_s:.3f}s; ||A - LL^T||/||A|| = "
+        f"{backward:.3e} (bound {eps_target:.0e}); max|L - chol64(A)|/max|L| "
+        f"= {forward:.3e} (bound {kappa * eps_target:.1e})")
+    log(f"mxp: fused vs unfused, worst tile error / (max(1e-12, 4 EPS[class]) "
+        f"max|L| + {FLIPS} x {flip:.3e}) = {worst:.3e} (bound 1); max tile "
+        f"error / max|L| by class {by_class}")
+    log(f"mxp: f32-compute control vs unfused, the same ratio = {ctrl:.3e} "
+        f"(must exceed 1); by class {ctrl_by_class}")
+    require(math.isfinite(backward) and backward <= eps_target,
+            f"mxp backward error {backward}")
+    require(math.isfinite(forward) and forward <= kappa * eps_target,
+            f"mxp forward error {forward}")
+    require(worst <= 1.0, f"mxp fused vs unfused {worst}")
+    require(ctrl > 1.0, f"mxp tile check passes the f32 control ({ctrl})")
+    return {"n": n, "tb": tb, "rho": rho, "eps_target": eps_target,
+            "precision_histogram": hist, "fused_factor_s": fused_s,
+            "unfused_factor_s": unfused_s, "launches": launches,
+            "backward_err": backward, "forward_err": forward,
+            "forward_bound": kappa * eps_target,
+            "f32_flip": flip, "flips_allowed": FLIPS,
+            "fused_vs_unfused_tile_ratio": worst,
+            "fused_vs_unfused_by_class": by_class,
+            "f32_control_tile_ratio": ctrl,
+            "f32_control_by_class": ctrl_by_class}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32768)
     ap.add_argument("--tb", type=int, default=512)
+    ap.add_argument("--mxp-n", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -281,24 +603,39 @@ def main() -> int:
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     checks = kernel_checks(args.tb, dev, g)     # 3. kernel check
-    main = main_path(args.n, args.tb, dev, args.seed)   # 4. main path
+    checks.update(fused_checks(args.tb, dev, g))
+    a = make_spd(args.n, dev, args.seed)        # 4. main path
+    lref = torch.linalg.cholesky(a)
+    main = main_path(a, lref, args.tb, dev, args.seed, fuse=False)
+    fused = main_path(a, lref, args.tb, dev, args.seed, fuse=True)
+    log(f"factor n={args.n}: unfused {main['factor_s']:.3f}s, fused "
+        f"{fused['factor_s']:.3f}s")
+    del a, lref
+    mxp = mxp_fused(args.mxp_n, args.tb, dev)   # 5. mixed precision
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
-        row = checks[f"{name}[float32]"]
+        if name == "fused_column_step":
+            row = checks[f"{name}[float32,R=32,K=32,diag=1]"]
+            launches = fused["launches"][name]
+        else:
+            row = checks[f"{name}[float32]"]
+            launches = main["launches"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main["launches"][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
+        if "unfused_ms" in row:
+            kernels[-1]["unfused_ms"] = row["unfused_ms"]
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
-         "kernels": kernels}, indent=1))
+         "fused": fused, "mxp": mxp, "kernels": kernels}, indent=1))
     log(card)
-    print(json.dumps({"kernels": kernels}))     # 5. kernels line
+    print(json.dumps({"kernels": kernels}))     # 6. kernels line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,9 +7,11 @@ Hopper kernels for the tile ops.  It imports ``torch``, numpy and scipy,
 never ``jax`` or ``repro``.  Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 
-This slice ports the single-device path: tiling, precision plans,
-schedules, the op-stream executor, blocked solves and the four per-op
-kernels (GEMM, SYRK, TRSM, POTRF).  See ROADMAP.md for what follows.
+The port covers the single-device path: tiling, precision plans,
+schedules, the op-stream executor (op by op, or one fused launch per
+column step with ``fuse_columns``), blocked solves, the four per-op
+kernels (GEMM, SYRK, TRSM, POTRF) and the fused column-step kernel.  See
+ROADMAP.md for what follows.
 """
 from repro_torch.convert import config_from_reference
 from repro_torch.core.api import (CholeskyConfig, CholeskyPlan, OOCSolver,

@@ -126,9 +126,6 @@ class CholeskyConfig:
         if self.host_slots > 0:
             raise _not_ported("the disk tier (host_slots > 0)",
                               "queue 1, item 7")
-        if self.fuse_columns:
-            raise _not_ported("the fused column step (fuse_columns=True)",
-                              "queue 1, item 4 and queue 2, item 5")
         if self.hw is not None:
             raise _not_ported("the hardware presets (hw)", "queue 1, item 5")
         if self.cache_slots > 0:
@@ -338,7 +335,8 @@ class _CompiledExecutor:
         self.dtype = cfg.resolved_compute_dtype
         self.run = make_torch_executor(plan.single_schedule(), self.dtype,
                                        use_pallas=cfg.use_pallas,
-                                       device=device)
+                                       device=device,
+                                       fuse_columns=cfg.fuse_columns)
         plan.executor_builds += 1
 
 

@@ -22,74 +22,10 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..kernels.ref import _round
 from .precision import (PrecisionPlan, assign_precision, tile_amax,
                         tile_norms, uniform_plan)
 from .schedule import HOST_IO, Op, OpKind, Schedule
-
-_CLASS_DTYPES = {
-    "f64": torch.float64,
-    "f32": torch.float32,
-    "f16": torch.float16,
-    "bf16": torch.bfloat16,
-    "f8e4m3": torch.float8_e4m3fn,
-    # the scaled FP8 class stores the same e4m3 payload; the per-tile
-    # power-of-two scale applied around the cast is what differs
-    "f8e4m3s": torch.float8_e4m3fn,
-}
-
-# e4m3 rounds |x| <= 464 to at most 448 (464 is the tie with the missing
-# 480, which rounds to even); past that the reference's cast gives NaN,
-# where PyTorch's saturates to 448.
-_FP8_NAN_ABOVE = 464.0
-
-
-def _f32_round_to_odd(x: torch.Tensor) -> torch.Tensor:
-    """f64 -> f32 rounding to odd: a later f32 -> f16 round then equals
-    the one-step f64 -> f16 round (f32 keeps more than two extra bits).
-    PyTorch's own f64 -> f16 cast goes through a round-to-nearest f32 and
-    can round twice."""
-    y = x.to(torch.float32)
-    yd = y.to(torch.float64)
-    # truncate toward zero, then set the last bit where the round was inexact
-    t = torch.where(yd.abs() > x.abs(),
-                    torch.nextafter(y, torch.zeros_like(y)), y)
-    bits = t.view(torch.int32)
-    inexact = (t.to(torch.float64) != x) & torch.isfinite(y)
-    return torch.where(inexact, bits | 1, bits).view(torch.float32)
-
-
-def _fp8_scale(amax: torch.Tensor) -> torch.Tensor:
-    """Store-time power-of-two scale of a scaled-FP8 tile (twin of
-    ``_jx_fp8_scale``; frexp keeps every backend bitwise-identical)."""
-    m, e = torch.frexp(amax)
-    exp = (8 - e) + (m <= 0.875).to(e.dtype)
-    s = torch.ldexp(torch.ones_like(amax), exp)
-    ok = torch.isfinite(amax) & (amax > 0)
-    return torch.where(ok, s, torch.ones_like(s))
-
-
-def _round(x: torch.Tensor, cls_name: str) -> torch.Tensor:
-    """Round a tile through its precision class, back in x's dtype.
-
-    Twin of the reference's ``_np_round``/``_jx_round``, bitwise: the f16
-    class rounds f64 in one step, and the unscaled FP8 class gives NaN
-    past the top of e4m3's band.  Returns ``x`` itself when the class
-    does not narrow x's dtype."""
-    cdt = _CLASS_DTYPES[cls_name]
-    if cls_name == "f64" or cdt == x.dtype:
-        return x
-    if cls_name == "f16" and x.dtype == torch.float64:
-        return _f32_round_to_odd(x).to(cdt).to(x.dtype)
-    if cdt == torch.float8_e4m3fn:
-        # the scaled class puts a finite tile's amax in (224, 448]; the
-        # mask matters there only for a tile holding inf or NaN
-        s = _fp8_scale(x.abs().amax()) if cls_name == "f8e4m3s" else None
-        y = (x if s is None else x * s).to(torch.float32)
-        q = y.to(cdt).to(x.dtype)
-        q = torch.where(y.abs() > _FP8_NAN_ABOVE,
-                        torch.full_like(q, float("nan")), q)
-        return q if s is None else q / s
-    return x.to(cdt).to(x.dtype)
 
 
 def _make_kernel_fns(use_pallas: bool) -> dict:
@@ -106,26 +42,41 @@ def _device_nslots(ops) -> int:
                 for o in ops if o.kind not in HOST_IO), default=-1) + 1
 
 
+def _load(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
+          io: dict) -> None:
+    s = slots[op.slot_c]
+    s.copy_(host[op.i, op.j], non_blocking=True)
+    r = _round(s, lad[op.cls])
+    if r is not s:
+        s.copy_(r)
+    io["h2d_ops"] += 1
+    io["h2d_bytes"] += s.numel() * s.element_size()
+
+
+def _write_host(host: torch.Tensor, op: Op, tile: torch.Tensor,
+                io: dict) -> None:
+    host[op.i, op.j].copy_(tile, non_blocking=True)
+    io["d2h_ops"] += 1
+    io["d2h_bytes"] += tile.numel() * tile.element_size()
+
+
+def _store(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
+           io: dict) -> None:
+    s = slots[op.slot_c]
+    r = _round(s, lad[op.cls])
+    if r is not s:
+        s.copy_(r)
+    _write_host(host, op, s, io)
+
+
 def _interpret_op(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
                   kf: dict, io: dict) -> None:
     """Run one op against the host store and the slot buffer, in place."""
     kind = op.kind
     if kind is OpKind.LOAD:
-        s = slots[op.slot_c]
-        s.copy_(host[op.i, op.j], non_blocking=True)
-        r = _round(s, lad[op.cls])
-        if r is not s:
-            s.copy_(r)
-        io["h2d_ops"] += 1
-        io["h2d_bytes"] += s.numel() * s.element_size()
+        _load(host, slots, op, lad, io)
     elif kind is OpKind.STORE:
-        s = slots[op.slot_c]
-        r = _round(s, lad[op.cls])
-        if r is not s:
-            s.copy_(r)
-        host[op.i, op.j].copy_(s, non_blocking=True)
-        io["d2h_ops"] += 1
-        io["d2h_bytes"] += s.numel() * s.element_size()
+        _store(host, slots, op, lad, io)
     elif kind is OpKind.SYRK:
         slots[op.slot_c] = kf["syrk"](slots[op.slot_c], slots[op.slot_a])
     elif kind is OpKind.GEMM:
@@ -137,15 +88,352 @@ def _interpret_op(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
         slots[op.slot_c] = kf["trsm"](slots[op.slot_a], slots[op.slot_c])
 
 
+# --------------------------------------------------------------------------
+# Fused column steps (CholeskyConfig.fuse_columns)
+# --------------------------------------------------------------------------
+#
+# Port of the reference's grouping (``_parse_column_group``,
+# ``_flush_group_fused``, ``_run_ops_fused``): the compute ops of one column
+# step (same ``op.k``) gather into a pending group that runs as one
+# ``fused_column_step`` launch when it matches the kernel's pattern, and op
+# by op otherwise.  LOADs run ahead of the group and its STOREs are
+# deferred behind it.  Two things differ.
+#
+# The slot buffer.  The reference's slots are immutable arrays, so an
+# operand snapshot is a value.  Here a LOAD writes its slot in place and
+# ``slots[s]`` is a view, so a snapshot holds a box around the live view,
+# and a LOAD into a slot that a live box names first moves the old tile
+# aside (copy on write).  A column's B row, which no LOAD touches while its
+# group is pending, is never copied.
+#
+# Reloaded output slots.  The reference flushes the group when a LOAD
+# targets a slot that the group writes: a finished row of this column
+# whose STORE is still deferred.  Out of core that is the common case (at
+# nt = 64 with v3's default 130 slots it splits 60 of 64 columns into 411
+# groups, 52 of them fused), so here the LOAD instead retires that row
+# under a private name (its start value is copied aside, its result goes
+# to its deferred STORE and to no slot, as the LOAD has overwritten the
+# slot in the unfused order too) and marks a cut where the reference would
+# flush.  At the flush the parse decides: a group that matches the kernel
+# whole, as a v2/v3 column does, is one launch; one that does not (the
+# rows of sync/async/v1/v4 store mid-accumulation, re-read their operands
+# or split into blocks) runs part by part between its cuts, which are the
+# reference's groups.  The parse keys outputs by name and operands by
+# snapshot, which is what the kernel reads.
+
+
+class _Name:
+    """A pending group's output: the slot it lives in, or None once a
+    LOAD has retired it."""
+    __slots__ = ("slot",)
+
+    def __init__(self, slot):
+        self.slot = slot
+
+
+_FUSABLE = (OpKind.SYRK, OpKind.GEMM, OpKind.POTRF, OpKind.TRSM)
+
+
+def _parse_column_group(group):
+    """Match one column step's pending group against the kernel's pattern;
+    ``None`` runs it per op.  ``group`` holds ``(op, snap, name)``.
+
+    The reference's rules, op for op: an optional diagonal phase (SYRKs
+    into one output, then its POTRF), then rows (GEMMs into one output,
+    then its TRSM against the diagonal) with one history depth and one B
+    operand sequence; at most one STORE per output, after its last
+    compute; no output doubling as a history operand.  Where the
+    reference compares slot numbers, this compares output names and
+    operand snapshots, which is what the kernel reads: a name is one
+    output of the group, a snapshot one version of a slot."""
+    def out(e):
+        return e[2]
+
+    def opnd(e, role):
+        t = e[1][role]
+        return t[1] if t[0] == "slot" else id(t[1])
+
+    ents = [e for e in group if e[0].kind is not OpKind.STORE]
+    last_compute_pos = {}
+    for pos, e in enumerate(group):
+        if e[0].kind is not OpKind.STORE:
+            last_compute_pos[out(e)] = pos
+    store_of = {}
+    for pos, e in enumerate(group):
+        if e[0].kind is OpKind.STORE:
+            if out(e) in store_of:          # two roundings of one slot
+                return None
+            if pos < last_compute_pos.get(out(e), -1):
+                return None                 # mid-accumulation store
+            store_of[out(e)] = e[0]
+    idx, n = 0, len(ents)
+    syrks: list = []
+    potrf = None
+    while idx < n and ents[idx][0].kind is OpKind.SYRK:
+        syrks.append(ents[idx])
+        idx += 1
+    if idx < n and ents[idx][0].kind is OpKind.POTRF:
+        potrf = ents[idx]
+        idx += 1
+        if any(out(e) != out(potrf) for e in syrks):
+            return None
+    elif syrks:
+        return None
+    rows = []
+    while idx < n:
+        gemms: list = []
+        while idx < n and ents[idx][0].kind is OpKind.GEMM:
+            gemms.append(ents[idx])
+            idx += 1
+        if idx >= n or ents[idx][0].kind is not OpKind.TRSM:
+            return None
+        trsm = ents[idx]
+        idx += 1
+        if any(out(e) != out(trsm) for e in gemms):
+            return None
+        rows.append((gemms, trsm))
+    with_diag = potrf is not None
+    if not with_diag and not rows:
+        return None
+    k_steps = len(syrks) if with_diag else len(rows[0][0])
+    b_ops = ([opnd(e, "a") for e in syrks] if with_diag
+              else [opnd(e, "b") for e in rows[0][0]])
+    for gemms, _t in rows:
+        if len(gemms) != k_steps \
+                or [opnd(e, "b") for e in gemms] != b_ops:
+            return None
+    diag = out(potrf) if with_diag else opnd(rows[0][1], "l")
+    if any(opnd(t, "l") != diag for _g, t in rows):
+        return None
+    outputs = ([diag] if with_diag else []) + [out(t) for _g, t in rows]
+    if len(set(outputs)) != len(outputs):
+        return None
+    if not set(store_of) <= set(outputs):
+        return None     # a store of a tile this launch doesn't produce
+    operands = set(b_ops)
+    for gemms, _t in rows:
+        operands.update(opnd(e, "a") for e in gemms)
+    if set(outputs) & operands:
+        # an output doubling as a history operand: the operand would be
+        # an in-launch intermediate, which the kernel cannot read
+        return None
+    return {"with_diag": with_diag, "rows": rows, "syrks": syrks,
+            "k_steps": k_steps, "outputs": outputs, "store_of": store_of}
+
+
+def _run_segment(seg, parsed, local, lad, kf):
+    """Run one matched or unmatched part of a pending group over ``local``
+    (output name -> value, updated in place): one fused launch when
+    ``parsed`` holds its pattern, the per-op kernels otherwise.  Returns
+    ``(store_op, rounded_tile)`` in stream order."""
+    def val(t):
+        return local[t[1]] if t[0] == "slot" else t[1][0]
+
+    if parsed is None:
+        # per-op replay over the snapshots, STORE roundings at their exact
+        # stream position
+        host_writes = []
+        for op, snap, name in seg:
+            if op.kind is OpKind.STORE:
+                r = _round(local[name], lad[op.cls])
+                local[name] = r
+                host_writes.append((op, r))
+            elif op.kind is OpKind.SYRK:
+                local[name] = kf["syrk"](local[name], val(snap["a"]))
+            elif op.kind is OpKind.GEMM:
+                local[name] = kf["gemm"](local[name], val(snap["a"]),
+                                         val(snap["b"]))
+            elif op.kind is OpKind.POTRF:
+                local[name] = kf["potrf"](local[name])
+            elif op.kind is OpKind.TRSM:
+                local[name] = kf["trsm"](val(snap["l"]), local[name])
+        return host_writes
+
+    rows = parsed["rows"]
+    with_diag = parsed["with_diag"]
+    k_steps = parsed["k_steps"]
+    names = parsed["outputs"]
+    c_stack = torch.stack([local[nm] for nm in names])
+    tb = c_stack.shape[-1]
+    if k_steps:
+        hist_rows = [[val(e[1]["a"]) for e in gemms] for gemms, _t in rows]
+        if with_diag:
+            bhist_tiles = [val(e[1]["a"]) for e in parsed["syrks"]]
+            hist_rows = [bhist_tiles] + hist_rows
+        else:
+            bhist_tiles = [val(e[1]["b"]) for e in rows[0][0]]
+        hist = torch.stack([t for r in hist_rows for t in r]).view(
+            len(names), k_steps, tb, tb)
+        bhist = torch.stack(bhist_tiles)
+    else:
+        hist = c_stack.new_empty((len(names), 0, tb, tb))
+        bhist = c_stack.new_empty((0, tb, tb))
+    l_kk = (c_stack.new_zeros((tb, tb)) if with_diag
+            else val(rows[0][1][1]["l"]).contiguous())
+    store_of = parsed["store_of"]
+    cls_ids = [store_of[nm].cls if nm in store_of else -1 for nm in names]
+    out = kops.fused_column_step(c_stack, hist, bhist, l_kk, cls_ids,
+                                 ladder=lad, with_diag=with_diag)
+    row_of = {}
+    for r, nm in enumerate(names):
+        row_of[nm] = r
+        local[nm] = out[r]
+    return [(op, out[row_of[name]])
+            for op, _s, name in seg if op.kind is OpKind.STORE]
+
+
+def _open_stores(group, cut):
+    """The end of the STOREs that open the part at ``cut``: the reference,
+    whose group is empty after its flush there, runs them alone."""
+    while cut < len(group) and group[cut][0].kind is OpKind.STORE:
+        cut += 1
+    return cut
+
+
+def _flush_group_fused(group, cuts, values, lad, kf):
+    """Run one pending group over ``values`` (output name -> value, updated
+    in place).
+
+    ``group`` holds ``(op, snap, name)``: compute ops with their operands
+    as taken at the op's stream position (``snap``) and the name of the
+    output they write, plus the column's STOREs; ``cuts`` are the group
+    positions where a LOAD retired an output, where the reference flushes.
+    A group that matches the column-step pattern whole is one fused
+    launch.  One that does not runs part by part between the cuts, as the
+    reference's groups: each part fused where it matches and per op where
+    it does not.  Returns ``(store_op, rounded_tile)`` in stream order for
+    the caller to write to the host."""
+    parts = [(group, _parse_column_group(group))]
+    if parts[0][1] is None and cuts:
+        parts = []
+        bounds = [0, *cuts, len(group)]
+        for a, b in zip(bounds, bounds[1:]):
+            m = _open_stores(group[:b], a)
+            parts += [(group[a:m], None),
+                      (group[m:b], _parse_column_group(group[m:b]))]
+    host_writes = []
+    for seg, parsed in parts:
+        host_writes += _run_segment(seg, parsed, values, lad, kf)
+    return host_writes
+
+
+def _run_ops_fused(ops, host, slots, lad, kf, io) -> None:
+    """Run an op stream with column-step fusion, in place.
+
+    Compute ops of one column accumulate into a pending group launched as
+    one kernel.  Each op's operands are taken at its stream position: a
+    marker when the operand is itself a pending output, else a box around
+    the slot's view, which a later LOAD into that slot replaces by a copy
+    of the old tile first.  STOREs are deferred behind the launch.  A LOAD
+    into a pending output's slot retires that output and marks a cut.  A
+    LOAD of a host tile with a deferred STORE runs the group first: up to
+    its last cut when the STORE lies before it, as the reference had
+    flushed there, else whole."""
+    group: list = []        # (op, operand snapshots, output name)
+    cuts: list = []         # group positions of the retiring LOADs
+    names: dict = {}        # slot -> the pending output living in it
+    values: dict = {}       # output name -> its value (at first touch)
+    dtiles: dict = {}       # host tile -> group position of its STORE
+    live: dict = {}         # slot -> the box holding its live view
+    recent: set = set()     # outputs touched since the last cut
+
+    def snap_operand(s):
+        if s in names:
+            return ("slot", names[s])
+        box = live.get(s)
+        if box is None:
+            box = live[s] = [slots[s]]
+        return ("val", box)
+
+    def output(s):
+        name = names.get(s)
+        if name is None:
+            name = names[s] = _Name(s)
+            values[name] = slots[s]
+        recent.add(name)
+        return name
+
+    def run(upto):
+        """Run ``group[:upto]`` and keep the rest pending."""
+        for o, r in _flush_group_fused(group[:upto], cuts, values, lad, kf):
+            _write_host(host, o, r, io)
+        del group[:upto]
+        cuts.clear()
+        for t, pos in list(dtiles.items()):
+            if pos < upto:
+                del dtiles[t]
+            else:
+                dtiles[t] = pos - upto
+
+    def flush():
+        run(len(group))
+        for name, v in values.items():
+            if name.slot is not None:
+                slots[name.slot] = v
+        names.clear()
+        values.clear()
+        live.clear()
+        recent.clear()
+
+    for op in ops:
+        if op.kind is OpKind.LOAD:
+            pos = dtiles.get((op.i, op.j))
+            if pos is not None:
+                # the host tile's STORE hasn't landed yet
+                cut = _open_stores(group, cuts[-1]) if cuts else 0
+                run(cut) if pos < cut else flush()
+            box = live.pop(op.slot_c, None)
+            if box is not None:
+                # a pending snapshot still reads this tile: move it aside
+                box[0] = box[0].clone()
+            name = names.pop(op.slot_c, None)
+            if name is not None:
+                # retire the pending output living here
+                name.slot = None
+                values[name] = values[name].clone()
+                if name in recent:
+                    # the reference flushes here (its group holds only
+                    # what came since its last flush)
+                    cuts.append(len(group))
+                    recent.clear()
+            _load(host, slots, op, lad, io)
+        elif op.kind is OpKind.STORE:
+            if group:
+                # ride in the group: the rounding applies at this exact
+                # stream position (launch epilogue / fallback replay),
+                # the host write lands at flush
+                dtiles[(op.i, op.j)] = len(group)
+                group.append((op, None, output(op.slot_c)))
+            else:
+                _store(host, slots, op, lad, io)
+        elif op.kind in _FUSABLE:
+            if group and op.k != group[0][0].k:
+                flush()
+            snap = {}
+            if op.kind is OpKind.SYRK:
+                snap["a"] = snap_operand(op.slot_a)
+            elif op.kind is OpKind.GEMM:
+                snap["a"] = snap_operand(op.slot_a)
+                snap["b"] = snap_operand(op.slot_b)
+            elif op.kind is OpKind.TRSM:
+                snap["l"] = snap_operand(op.slot_a)
+            group.append((op, snap, output(op.slot_c)))
+        # ALLOC/FREE are bookkeeping-only, as in the unfused run
+    flush()
+
+
 def make_torch_executor(sched: Schedule, compute_dtype=torch.float64,
-                        use_pallas: bool = False, device="cuda"):
+                        use_pallas: bool = False, device="cuda",
+                        fuse_columns: bool = False):
     """Build a function that replays ``sched`` on a host tile store.
 
     The store is the ``[nt, nt, tb, tb]`` CPU tensor in ``compute_dtype``
     (pinned for a CUDA ``device``); the function factors it in place and
     returns the executed transfer counters (copies and bytes each way)
     once every op is queued.  The caller synchronises the device before it
-    reads the store.
+    reads the store.  ``fuse_columns`` runs each column step's compute ops
+    as one ``fused_column_step`` launch (:func:`_run_ops_fused`); the
+    transfers are unchanged.
     """
     if sched.host_slots > 0:
         raise NotImplementedError(
@@ -164,6 +452,9 @@ def make_torch_executor(sched: Schedule, compute_dtype=torch.float64,
         io = {"h2d_ops": 0, "h2d_bytes": 0, "d2h_ops": 0, "d2h_bytes": 0}
         slots = torch.zeros((nslots, tb, tb), dtype=compute_dtype,
                             device=device)
+        if fuse_columns:
+            _run_ops_fused(sched.ops, host, slots, lad, kf, io)
+            return io
         for op in sched.ops:
             _interpret_op(host, slots, op, lad, kf, io)
         return io

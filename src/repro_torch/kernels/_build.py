@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``-gencode arch=compute_90a,code=sm_90a``), so the
-four sources build in parallel, one ``nvcc`` each, in seconds.  Nothing
+sources build in parallel, one ``nvcc`` each, in seconds.  Nothing
 is built when the package is imported: the first kernel launch builds
 what it needs, and :func:`build` builds every source at once (the smoke
 script calls it to time the build).  Libraries land in ``build/kernels``
@@ -22,7 +22,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = ("mxp_gemm", "syrk", "trsm", "potrf")
+SOURCES = ("mxp_gemm", "syrk", "trsm", "potrf", "fused_column")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

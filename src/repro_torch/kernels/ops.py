@@ -4,17 +4,20 @@ Dispatch rule, as in the reference: f64 tiles take the stock path (here
 PyTorch's own ``cholesky``/``solve_triangular``/``@``, as the reference
 leaves them to XLA); every other tile goes to its kernel's wrapper, which
 launches the CUDA kernel on a CUDA tensor and runs the plain version on a
-CPU tensor.
+CPU tensor.  The fused column step takes its kernel in f64 too, as the
+reference's does.
 
-Two counters: :func:`call_counts` counts every tile op dispatched here,
-whatever the device (the reference's ``tile_op`` count);
-:func:`launch_counts` counts CUDA kernel launches only, one per launch,
-kept by each kernel's wrapper.
+Two counters: :func:`call_counts` counts every dispatch here, whatever the
+device (the reference's ``tile_op`` count for the four tile ops and its
+``fused_column`` count for ``fused_column_step``); :func:`launch_counts`
+counts CUDA kernel launches only, one per launch, kept by each kernel's
+wrapper.
 """
 from __future__ import annotations
 
 import torch
 
+from . import fused_column as _fused
 from . import mxp_gemm as _gemm
 from . import potrf as _potrf
 from . import syrk as _syrk
@@ -22,7 +25,7 @@ from . import trsm as _trsm
 from .ref import cholesky_nan
 
 KERNELS = {"mxp_gemm_update": _gemm, "syrk_update": _syrk, "trsm": _trsm,
-           "potrf": _potrf}
+           "potrf": _potrf, "fused_column_step": _fused}
 
 #: the stock f64 path: the same functions the reference's XLA path runs
 STOCK = {
@@ -83,3 +86,9 @@ def gemm_update(c, a, b):
         return STOCK["gemm"](c, a, b)
     return _gemm.mxp_gemm_update(c, a, b)
 
+
+def fused_column_step(c_stack, hist, bhist, l_kk, cls_ids, *, ladder,
+                      with_diag):
+    _CALLS["fused_column_step"] += 1
+    return _fused.fused_column_step(c_stack, hist, bhist, l_kk, cls_ids,
+                                    ladder=ladder, with_diag=with_diag)

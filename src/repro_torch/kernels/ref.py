@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the four tile kernels (twins of repro.kernels.ref).
+"""Plain PyTorch versions of the four tile kernels (twins of repro.kernels.ref)
+and the class round that the executor and the fused kernel's epilogue share.
 
 Each function computes what its CUDA kernel computes: f32 arithmetic on
 f32, bf16 or fp8 operands (widened first; PyTorch has no fp8 matmul on
@@ -15,6 +16,72 @@ import torch
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
+
+
+_CLASS_DTYPES = {
+    "f64": torch.float64,
+    "f32": torch.float32,
+    "f16": torch.float16,
+    "bf16": torch.bfloat16,
+    "f8e4m3": torch.float8_e4m3fn,
+    # the scaled FP8 class stores the same e4m3 payload; the per-tile
+    # power-of-two scale applied around the cast is what differs
+    "f8e4m3s": torch.float8_e4m3fn,
+}
+
+# e4m3 rounds |x| <= 464 to at most 448 (464 is the tie with the missing
+# 480, which rounds to even); past that the reference's cast gives NaN,
+# where PyTorch's saturates to 448.
+_FP8_NAN_ABOVE = 464.0
+
+
+def _f32_round_to_odd(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32 rounding to odd: a later f32 -> f16 round then equals
+    the one-step f64 -> f16 round (f32 keeps more than two extra bits).
+    PyTorch's own f64 -> f16 cast goes through a round-to-nearest f32 and
+    can round twice."""
+    y = x.to(torch.float32)
+    yd = y.to(torch.float64)
+    # truncate toward zero, then set the last bit where the round was inexact
+    t = torch.where(yd.abs() > x.abs(),
+                    torch.nextafter(y, torch.zeros_like(y)), y)
+    bits = t.view(torch.int32)
+    inexact = (t.to(torch.float64) != x) & torch.isfinite(y)
+    return torch.where(inexact, bits | 1, bits).view(torch.float32)
+
+
+def _fp8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """Store-time power-of-two scale of a scaled-FP8 tile (twin of
+    ``_jx_fp8_scale``; frexp keeps every backend bitwise-identical)."""
+    m, e = torch.frexp(amax)
+    exp = (8 - e) + (m <= 0.875).to(e.dtype)
+    s = torch.ldexp(torch.ones_like(amax), exp)
+    ok = torch.isfinite(amax) & (amax > 0)
+    return torch.where(ok, s, torch.ones_like(s))
+
+
+def _round(x: torch.Tensor, cls_name: str) -> torch.Tensor:
+    """Round a tile through its precision class, back in x's dtype.
+
+    Twin of the reference's ``_np_round``/``_jx_round``, bitwise: the f16
+    class rounds f64 in one step, and the unscaled FP8 class gives NaN
+    past the top of e4m3's band.  Returns ``x`` itself when the class
+    does not narrow x's dtype."""
+    cdt = _CLASS_DTYPES[cls_name]
+    if cls_name == "f64" or cdt == x.dtype:
+        return x
+    if cls_name == "f16" and x.dtype == torch.float64:
+        return _f32_round_to_odd(x).to(cdt).to(x.dtype)
+    if cdt == torch.float8_e4m3fn:
+        # the scaled class puts a finite tile's amax in (224, 448]; the
+        # mask matters there only for a tile holding inf or NaN
+        s = _fp8_scale(x.abs().amax()) if cls_name == "f8e4m3s" else None
+        y = (x if s is None else x * s).to(torch.float32)
+        q = y.to(cdt).to(x.dtype)
+        q = torch.where(y.abs() > _FP8_NAN_ABOVE,
+                        torch.full_like(q, float("nan")), q)
+        return q if s is None else q / s
+    return x.to(cdt).to(x.dtype)
 
 
 def cholesky_nan(a: torch.Tensor) -> torch.Tensor:

@@ -64,7 +64,8 @@ def test_cuda_kernels_match_plain(cuda, n, dtype):
          ref.gemm_update_ref(spd, m1, m2), n * tol / 16, tol),
     ]
     torch.cuda.synchronize()
-    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 1),
+                                   "fused_column_step": 0}
     for name, got, want, atol, rtol in cases:
         assert got.dtype == want.dtype, name
         torch.testing.assert_close(got.double(), want.double(), atol=atol,
@@ -100,5 +101,121 @@ def test_cuda_executor_runs_the_kernels(cuda):
     assert ops.launch_counts() == {
         "mxp_gemm_update": sched.count(OpKind.GEMM),
         "syrk_update": sched.count(OpKind.SYRK),
-        "trsm": sched.count(OpKind.TRSM), "potrf": sched.count(OpKind.POTRF)}
+        "trsm": sched.count(OpKind.TRSM), "potrf": sched.count(OpKind.POTRF),
+        "fused_column_step": 0}
+    assert np.abs(l - np.linalg.cholesky(a)).max() < 5e-3
+
+
+# --------------------------------------------------------------------------
+# the fused column step
+# --------------------------------------------------------------------------
+
+_FUSED_CLASSES = ("f64", "f32", "f16", "bf16", "f8e4m3", "f8e4m3s")
+_LADDER = ("f64", "f32", "f16", "bf16", "f8e4m3", "f8e4m3s")
+# unit roundoff of each class (repro_torch.core.precision.EPS)
+_EPS = {"f64": 2.0 ** -53, "f32": 2.0 ** -24, "f16": 2.0 ** -11,
+        "bf16": 2.0 ** -8, "f8e4m3": 2.0 ** -4, "f8e4m3s": 2.0 ** -4}
+
+
+def _fused_inputs(r_tiles, k_hist, tb, with_diag, dt, dev, seed=0):
+    """Column-step operands shaped like the executor's group; history
+    entries N(0, 1/tb), so the wave moves every entry by O(sqrt(K/tb))."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((tb, tb))
+    spd = np.eye(tb) * (2.0 * tb) + g @ g.T / tb
+    rows = [spd if with_diag else rng.standard_normal((tb, tb))]
+    rows += [rng.standard_normal((tb, tb)) for _ in range(r_tiles - 1)]
+    hist = rng.standard_normal((r_tiles, k_hist, tb, tb)) / np.sqrt(tb)
+    bhist = hist[0].copy() if with_diag else \
+        rng.standard_normal((k_hist, tb, tb)) / np.sqrt(tb)
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev, dt)
+            for x in (np.stack(rows), hist, bhist, np.linalg.cholesky(spd))]
+
+
+def _fused_tol(cls, tb, dt):
+    """An accumulation-order ulp may move a value across a class quantum
+    (tests/test_kernel_numerics.py::_tol); in f32 the factor and the solve
+    also carry a few tb * 2^-24 of a row's scale."""
+    work = 1e-12 if dt == torch.float64 else 4 * tb * 2.0 ** -24
+    return max(work, 4 * _EPS[cls])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_diag", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("tb", [64, 128, 512])
+def test_cuda_fused_matches_plain(cuda, tb, dtype, with_diag):
+    from repro_torch.kernels import fused_column
+    dt = torch.float32 if dtype == "float32" else torch.float64
+    args = _fused_inputs(3, 2, tb, with_diag, dt, cuda, seed=tb)
+    for cls in _FUSED_CLASSES:
+        ids = [_LADDER.index(cls)] * 3
+        ops.reset_counts()
+        got = fused_column.fused_column_step(*args, ids, ladder=_LADDER,
+                                             with_diag=with_diag)
+        want = fused_column.fused_column_step_ref(
+            *args, ids, ladder=_LADDER, with_diag=with_diag)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_column_step"] == 1
+        assert got.dtype == dt
+        # each row at its own scale, max|want[r]|
+        err = (got.double() - want.double()).abs().amax(dim=(1, 2))
+        scale = want.double().abs().amax(dim=(1, 2)).clamp_min(1e-300)
+        ratio = float((err / (_fused_tol(cls, tb, dt) * scale)).max())
+        assert ratio <= 1.0, (cls, ratio)
+
+
+def _edge_tile(tb, dt, dev, seed):
+    """Log-uniform magnitudes with f16 ties and values past e4m3's band."""
+    rng = np.random.default_rng(seed)
+    x = 10.0 ** rng.uniform(-12, 6, (tb, tb))
+    x = np.where(rng.random((tb, tb)) < 0.5, -x, x)
+    edges = np.array([448.0, 455.0, 464.0, 464.5, 470.0, 1.0 + 2.0 ** -11,
+                      1.0 + 2.0 ** -11 + 2.0 ** -40, 2.0 ** -10, 0.0, -0.0])
+    x.flat[: edges.size] = edges
+    return torch.from_numpy(x).to(dev, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_fused_epilogue_bitwise(cuda, dtype):
+    """K = 0, no diagonal, l_kk = I: the solve returns C exactly, so the
+    output is the epilogue alone, held bitwise against the port's class
+    round on the card (NaN against NaN)."""
+    from repro_torch.kernels import fused_column
+    dt = torch.float32 if dtype == "float32" else torch.float64
+    tb = 128
+    ids = list(range(-1, len(_LADDER)))
+    c = torch.stack([_edge_tile(tb, dt, cuda, seed=i) for i in range(len(ids))])
+    # one tile of one magnitude, so the scaled class's scale is not 1
+    c[-1] = c[-1].clamp(-1e-3, 1e-3)
+    got = fused_column.fused_column_step(
+        c, c.new_empty((len(ids), 0, tb, tb)), c.new_empty((0, tb, tb)),
+        torch.eye(tb, dtype=dt, device=cuda), ids, ladder=_LADDER,
+        with_diag=False)
+    torch.cuda.synchronize()
+    for r, cls_id in enumerate(ids):
+        want = fused_column._epilogue(c[r], cls_id, _LADDER)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got[r]), nan), cls_id
+        bits = torch.int32 if dt == torch.float32 else torch.int64
+        assert torch.equal(got[r][~nan].view(bits),
+                           want[~nan].view(bits)), cls_id
+
+
+@pytest.mark.cuda
+def test_cuda_fused_executor_one_launch_per_column(cuda):
+    """v3 end to end through the fused kernel: exactly nt launches, no
+    per-op launch, the factor within the unfused slice's f32 bound."""
+    import repro_torch
+    n, tb = 1024, 128
+    a = repro_torch.random_spd(n, seed=9)
+    solver = repro_torch.plan(n, repro_torch.CholeskyConfig(
+        tb=tb, use_pallas=True, compute_dtype=torch.float32,
+        fuse_columns=True)).compile()
+    ops.reset_counts()
+    l = solver.factor(a)
+    counts = ops.launch_counts()
+    assert counts.pop("fused_column_step") == n // tb
+    assert set(counts.values()) == {0}
     assert np.abs(l - np.linalg.cholesky(a)).max() < 5e-3

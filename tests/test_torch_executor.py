@@ -162,7 +162,7 @@ def test_call_counts_equal_schedule_op_counts():
         "mxp_gemm_update": sched.count(OpKind.GEMM),
         "syrk_update": sched.count(OpKind.SYRK),
         "trsm": sched.count(OpKind.TRSM),
-        "potrf": sched.count(OpKind.POTRF)}
+        "potrf": sched.count(OpKind.POTRF), "fused_column_step": 0}
     # on the CPU the wrappers run the plain versions: no kernel launches
     assert set(repro_torch.launch_counts().values()) == {0}
     t = solver.stats["transfers"]
@@ -191,8 +191,11 @@ def test_compile_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(ndev=2), dict(host_slots=4), dict(fuse_columns=True), dict(tb=0),
-    dict(policy="auto"), dict(backend="numpy"), dict(hw="h100-pcie"),
+    dict(ndev=2), dict(host_slots=4),
+    # the fused step itself is ported; across devices it is not
+    pytest.param(dict(fuse_columns=True, ndev=2), id="fuse_columns"),
+    dict(tb=0), dict(policy="auto"), dict(backend="numpy"),
+    dict(hw="h100-pcie"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -218,7 +221,8 @@ def test_config_from_reference_mirrors_fields():
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core.api, "
-            "repro_torch.kernels.ops, repro_torch.kernels._build\n"
+            "repro_torch.kernels.ops, repro_torch.kernels._build, "
+            "repro_torch.kernels.fused_column\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "print(bad)\n")

@@ -13,7 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import fused_column, ops, ref
 
 SHAPES = [64, 128, 256, 384]
 DTYPES = ["float32", "bfloat16"]
@@ -128,6 +128,10 @@ def test_cpu_wrappers_run_the_plain_versions():
     assert torch.equal(ops.gemm_update(c, a, a), ref.gemm_update_ref(c, a, a))
     assert torch.equal(ops.potrf(c), ref.potrf_ref(c))
     assert torch.equal(ops.trsm(c, a), ref.trsm_ref(c, a))
+    args = (c[None], a[None, None], a[None], c, [-1])
+    kw = dict(ladder=("f64", "f32"), with_diag=False)
+    assert torch.equal(ops.fused_column_step(*args, **kw),
+                       fused_column.fused_column_step_ref(*args, **kw))
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
     assert ops.call_counts() == dict.fromkeys(ops.KERNELS, 1)
 
@@ -143,6 +147,9 @@ def test_wrappers_reject_other_devices():
     a = torch.empty((64, 64), device="meta")
     for call in (lambda: ops.potrf(a), lambda: ops.trsm(a, a),
                  lambda: ops.syrk_update(a, a),
-                 lambda: ops.gemm_update(a, a, a)):
+                 lambda: ops.gemm_update(a, a, a),
+                 lambda: ops.fused_column_step(
+                     a[None], a[None, None], a[None], a, [-1],
+                     ladder=("f32",), with_diag=False)):
         with pytest.raises(ValueError, match="no kernel for device"):
             call()

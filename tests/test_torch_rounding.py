@@ -13,7 +13,7 @@ import torch
 from repro.core.cholesky import _np_round
 from repro.core.precision import LADDERS as REF_LADDERS
 
-from repro_torch.core.cholesky import _fp8_scale, _round
+from repro_torch.kernels.ref import _fp8_scale, _round
 from repro_torch.core.precision import LADDERS, fp8_scale
 
 CLASSES = sorted({c for lad in REF_LADDERS.values() for c in lad})
