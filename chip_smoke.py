@@ -29,18 +29,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    scaled FP8 one among them), held against ``torch.linalg.cholesky`` and,
    tile by tile, against the unfused port; the same plan computed in f32
    must fail that tile check;
-6. the kernels line (JSON) and the last line,
+6. LM serving, qwen3-14b at published widths and depth (bf16 activations,
+   f32 parameters from ``--seed``, the flash flag on): the flash kernel
+   against its plain version at the prefill shape and five others, each
+   output row at its own scale (a zeroed output and a dropped KV tile must
+   fail that check), timed at the prefill shape beside its plain version,
+   PyTorch's SDPA and its bound; a prefill step on 4 x 2048 tokens (40
+   flash launches, logits finite, padding masked), the same step with the
+   plain attention passed in, and the decode server on a 128-token prompt,
+   whose replay logits are held against a flash prefill of the same
+   prompt; both logit checks must reject two faults (the flash kernel
+   without its causal mask, the attention output dropped); decode tokens/s
+   is the median of six windows;
+7. the kernels line (JSON) and the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
 ``chiprun_out/chip_smoke.json`` as well.  ``--n`` and ``--tb`` cut the
-size for a quick run.
+Cholesky size for a quick run; the model runs at full width and depth.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -56,6 +69,7 @@ ROOT = Path(__file__).resolve().parent
 # and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12     # dense, on the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 KERNEL_META = {
@@ -69,6 +83,8 @@ KERNEL_META = {
               "src/repro/kernels/potrf.py:41"),
     "fused_column_step": ("src/repro_torch/kernels/csrc/fused_column.cu",
                           "src/repro/kernels/fused_column.py:173"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:26"),
 }
 _OP_OF = {"mxp_gemm_update": "GEMM", "syrk_update": "SYRK", "trsm": "TRSM",
           "potrf": "POTRF"}
@@ -575,6 +591,321 @@ def mxp_fused(n: int, tb: int, dev) -> dict:
             "f32_control_by_class": ctrl_by_class}
 
 
+# flash cases: (tag, B, S, T, H, KV, hd, dtype, causal); the first is
+# qwen3-14b's prefill shape, the one timed and reported
+FLASH_CASES = (
+    ("prefill", 4, 2048, 2048, 40, 8, 128, torch.bfloat16, True),
+    ("f32,hd64", 1, 512, 512, 8, 2, 64, torch.float32, True),
+    ("f32,hd128", 1, 512, 512, 40, 8, 128, torch.float32, True),
+    ("bf16,hd192", 1, 512, 512, 96, 8, 192, torch.bfloat16, True),
+    ("bf16,hd256", 1, 512, 512, 4, 1, 256, torch.bfloat16, True),
+    ("f32,full,T!=S", 2, 256, 1024, 40, 8, 128, torch.float32, False),
+    ("bf16,long KV", 1, 128, 16384, 40, 8, 128, torch.bfloat16, False),
+)
+# tests/test_flash_attention.py's tolerances
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# Each output row (hd values) is also held at its own scale: the output's
+# rounding, one ulp of the row's largest value (2^-7 in bf16, 2^-23 in
+# f32), plus the two summation orders of a weighted mean of v in f32,
+# FLASH_ACC x 2^-24 x max|v|.  The card's worst f32 error, 4.6e-7 at
+# T != S (NVIDIA H100 80GB HBM3, 700 W, benchmarks/torch_lm_bounds.py),
+# is below 2 x 2^-24 max|v|; a dropped KV tile reads 32 or more times the
+# allowance.
+FLASH_ROW_TOL = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
+FLASH_ACC = 8
+FLASH_DROP = 64     # keys the dropped-tile control leaves out
+
+
+def _flash_cost(b, s, t, h, kv, hd, dt, causal):
+    """Least time of one call: each product over the (qi, kj) pairs the mask
+    keeps, Q K^T at the tensor cores' bf16 peak for bf16 inputs (f32's
+    otherwise) and P V at the f32 peak (P stays f32); bytes of q, k, v and o
+    once each."""
+    if causal:      # rows qi see min(qi + 1, T) keys
+        pairs = (t * (t + 1) // 2 + (s - t) * t if s >= t
+                 else s * (s + 1) // 2)
+    else:
+        pairs = s * t
+    per = 2.0 * b * h * pairs * hd
+    peak_qk = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+    bound_f = (per / peak_qk + per / PEAK_F32_FLOPS) * 1e3
+    itemsize = torch.finfo(dt).bits // 8
+    nbytes = (2 * b * s * h + 2 * b * t * kv) * hd * itemsize
+    bound_b = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"flops": 2 * per, "bytes": nbytes,
+            "bound_ms": max(bound_f, bound_b),
+            "bound_by": "operations" if bound_f >= bound_b else "bytes"}
+
+
+def _flash_row_ratio(got, want, v, tol):
+    """The worst output row's max|got - want| over its allowance: ``tol``
+    times that row's max|want|, plus FLASH_ACC f32 quanta of max|v|."""
+    err = (got.double() - want.double()).abs().amax(dim=-1)
+    allow = (tol * want.double().abs().amax(dim=-1)
+             + FLASH_ACC * 2.0 ** -24 * float(v.abs().max()))
+    return float((err / allow).max())
+
+
+def flash_checks(dev, g) -> dict:
+    """The flash kernel against its plain version at every case, each row
+    at its own scale, with two controls that must fail that check: a zeroed
+    output, and the plain version without the last FLASH_DROP keys (a
+    kernel that drops its last KV tile).  q and k are unit normals, so the
+    scores spread by about 1 and each row is a weighted mean of v that a
+    dropped tile moves.  The prefill shape is timed beside the plain
+    version and PyTorch's SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    results = {}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain version in f32
+    try:
+        for tag, b, s, t, h, kv, hd, dt, causal in FLASH_CASES:
+            q, k, v = (torch.randn(*shape, generator=g, device=dev).to(dt)
+                       for shape in ((b, s, h, hd), (b, t, kv, hd),
+                                     (b, t, kv, hd)))
+            got = fa.flash_gqa(q, k, v, causal=causal)
+            want = fa.flash_gqa_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            tol, row_tol = FLASH_TOL[dt], FLASH_ROW_TOL[dt]
+            torch.testing.assert_close(
+                got.double(), want.double(), atol=tol, rtol=tol,
+                msg=lambda m, tag=tag: f"flash_attention[{tag}]: {m}")
+            ratio = _flash_row_ratio(got, want, v, row_tol)
+            dropped = fa.flash_gqa_ref(q, k[:, :-FLASH_DROP],
+                                       v[:, :-FLASH_DROP], causal=causal,
+                                       bq=FLASH_DROP, bk=FLASH_DROP)
+            ctrl_drop = _flash_row_ratio(got, dropped, v, row_tol)
+            ctrl_zero = _flash_row_ratio(torch.zeros_like(got), want, v,
+                                         row_tol)
+            del dropped
+            require(ratio <= 1.0, f"flash_attention[{tag}] row ratio {ratio}")
+            require(ctrl_drop > 1.0 and ctrl_zero > 1.0,
+                    f"flash_attention[{tag}] row check passes a control "
+                    f"(dropped tile {ctrl_drop}, zeroed {ctrl_zero})")
+            row = {"shape": [b, s, t, h, kv, hd], "dtype": str(dt)[6:],
+                   "causal": causal, "max_abs_err": err, "atol": tol,
+                   "rtol": tol, "tol_per_row": row_tol, "row_ratio": ratio,
+                   "err_in_f32_quanta_of_max_v":
+                       err / (2.0 ** -24 * float(v.abs().max())),
+                   "control_dropped_tile_ratio": ctrl_drop,
+                   "control_zeroed_ratio": ctrl_zero,
+                   **_flash_cost(b, s, t, h, kv, hd, dt, causal)}
+            if tag == "prefill":
+                del got, want
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                row.update({
+                    "ms": time_ms(lambda: fa.flash_gqa(q, k, v), 20),
+                    "plain_ms": time_ms(lambda: fa.flash_gqa_ref(q, k, v),
+                                        3, 1),
+                    "library_ms": time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+                    "library": "F.scaled_dot_product_attention(is_causal, "
+                               "enable_gqa), bf16 P"})
+                row["tflops"] = row["flops"] / row["ms"] / 1e9
+            results[f"flash_attention[{tag}]"] = row
+            log(f"kernel flash_attention[{tag}]: " + json.dumps(row))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return results
+
+
+# Bounds on max|logit difference| / max|logit| at the last position, set
+# between the sound readings and the faults that must fail them (seeds 0-2,
+# NVIDIA H100 80GB HBM3, 700 W, benchmarks/torch_lm_bounds.py): flash
+# against its plain version reads 0.0166-0.0175 (the attention output's
+# bf16 rounding in each layer); the flash prefill against the decode replay
+# 0.0190-0.0232 (also the MLP's matmul shapes and the replay's bf16 softmax
+# weights); the faults read 1.19 or more.  Each bound is 3 times the worst
+# sound reading.
+PREFILL_REL_BOUND = 0.05
+REPLAY_REL_BOUND = 0.07
+DECODE_WINDOWS = 5      # timed decode windows beside generate's own
+
+
+def _logit_diff(got, want, vocab):
+    """max|got - want| over the real vocabulary, max|want|, and the rows
+    whose top-1 token agrees."""
+    got, want = got[:, :vocab].float(), want[:, :vocab].float()
+    diff = float((got - want).abs().max())
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    return diff, float(want.abs().max()), same
+
+
+def lm_serving(dev, seed: int) -> dict:
+    """qwen3-14b's serving path: prefill through the flash kernel, the same
+    step with the plain attention, and the decode server."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_gqa, flash_gqa_ref
+    from repro_torch.launch.serve import decode_tokens
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import dtype_of
+    cfg = dataclasses.replace(get_config("qwen3-14b"), use_flash_attention=True)
+    n_layers = cfg.num_layers
+    # faults the logit checks must catch: the kernel without its causal
+    # mask, and the attention's output dropped
+    faults = {
+        "no causal mask": lambda q, k, v, **kw: flash_gqa(
+            q, k, v, **{**kw, "causal": False}),
+        "attention dropped": lambda q, k, v, **kw: torch.zeros_like(q)}
+    only_flash = {**dict.fromkeys(repro_torch.launch_counts(), 0),
+                  "flash_attention": n_layers}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"lm: {cfg.name} {n_layers} layers d_model {cfg.d_model} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.head_dim}, "
+        f"{sum(p.numel() for p in params.parameters()):,} parameters "
+        f"({param_gb:.2f} GB f32) made in {init_s:.2f}s")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    # prefill: 4 x 2048 tokens, flash at bq = bk = 512
+    batch, seq = 4, 2048
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
+    prefill = make_prefill_step(cfg)
+    prefill_s, launches = [], None
+    for _ in range(2):
+        repro_torch.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        launches = repro_torch.launch_counts()
+        require(launches == only_flash,
+                f"prefill launches {launches} != {only_flash}")
+    v = cfg.vocab
+    require(tuple(logits.shape) == (batch, cfg.padded_vocab),
+            f"prefill logits {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits[:, :v]).all()), "prefill logits finite")
+    require(bool((logits[:, v:] <= -1e29).all()), "padding columns masked")
+    tok_s = batch * seq / prefill_s[-1]
+    log(f"lm: prefill {batch}x{seq} in {prefill_s[0]:.3f}s then "
+        f"{prefill_s[1]:.3f}s ({tok_s:.0f} tokens/s); launches per step "
+        f"{launches}")
+
+    # the same step with the plain attention passed in
+    t0 = time.perf_counter()
+    plain = make_prefill_step(cfg, flash=flash_gqa_ref)(params,
+                                                         {"tokens": tokens})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff, scale, same = _logit_diff(logits, plain, v)
+    log(f"lm: prefill with flash_gqa_ref {plain_s:.3f}s; last-position "
+        f"logits max|flash - plain| = {diff:.4e} = {diff / scale:.4f} x "
+        f"max|logit| {scale:.3f} (bound {PREFILL_REL_BOUND:.4f}); top-1 "
+        f"agrees in {same}/{batch} rows")
+    require(diff <= PREFILL_REL_BOUND * scale, f"prefill vs plain {diff}")
+    del logits
+    controls = {}
+    for name, attn in faults.items():
+        bad = make_prefill_step(cfg, flash=attn)(params, {"tokens": tokens})
+        cd, _, csame = _logit_diff(bad, plain, v)
+        controls[name] = {"rel_diff": cd / scale, "top1_agree": csame}
+        log(f"lm: control {name}: max|control - plain| = {cd / scale:.4f} x "
+            f"max|logit| (must exceed {PREFILL_REL_BOUND:.4f}); top-1 agrees "
+            f"in {csame}/{batch} rows")
+        require(cd > PREFILL_REL_BOUND * scale,
+                f"prefill check passes the {name} control ({cd})")
+        del bad
+    del plain
+
+    # serve: replay a 128-token prompt through decode, 16 greedy tokens
+    prompt_len, gen_len = 128, 16
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
+                            device=dev)
+    repro_torch.reset_counts()
+    t0 = time.perf_counter()
+    out_tokens, decode_tok_s, replay_logits = decode_tokens(
+        params, cfg, prompts, gen_len)
+    serve_s = time.perf_counter() - t0
+    decode_launches = repro_torch.launch_counts()
+    require(set(decode_launches.values()) == {0},
+            f"decode launched kernels {decode_launches}")
+    require(out_tokens.shape == (batch, gen_len)
+            and int(out_tokens.min()) >= 0 and int(out_tokens.max()) < v,
+            f"generated tokens {out_tokens.shape}")
+    # more windows of the same gen_len - 1 steps, through the serve step
+    serve = make_serve_step(cfg)
+    cache = T.init_cache(cfg, batch, prompt_len + gen_len,
+                         dtype_of(cfg.dtype), dev)
+    tok = torch.as_tensor(out_tokens[:, -1:], device=dev)
+    windows = [decode_tok_s]
+    for _ in range(DECODE_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(prompt_len, prompt_len + gen_len - 1):
+            step_logits, cache = serve(params, cache, tok, pos)
+            tok = torch.argmax(step_logits[..., :v], dim=-1)
+        torch.cuda.synchronize()
+        windows.append(batch * (gen_len - 1) / (time.perf_counter() - t0))
+    del cache, step_logits
+    decode_median = statistics.median(windows)
+    step_ms = batch / decode_median * 1e3
+    log(f"lm: serve {batch} x ({prompt_len} prompt + {gen_len} generated) in "
+        f"{serve_s:.2f}s; decode over {len(windows)} windows of "
+        f"{gen_len - 1} steps: median {decode_median:.1f} tokens/s "
+        f"({step_ms:.1f} ms a step), min {min(windows):.1f}, max "
+        f"{max(windows):.1f}")
+
+    repro_torch.reset_counts()
+    short = make_prefill_step(cfg)(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    short_launches = repro_torch.launch_counts()
+    require(short_launches == only_flash,
+            f"prefill-128 launches {short_launches} != {only_flash}")
+    replay = replay_logits[:, 0]
+    diff128, scale128, same128 = _logit_diff(short, replay, v)
+    log(f"lm: flash prefill of the prompt vs the decode replay at position "
+        f"{prompt_len - 1}: max|diff| = {diff128:.4e} = "
+        f"{diff128 / scale128:.4f} x max|logit| {scale128:.3f} (bound "
+        f"{REPLAY_REL_BOUND:.4f}); argmax agrees in {same128}/{batch}")
+    require(diff128 <= REPLAY_REL_BOUND * scale128,
+            f"prefill vs replay {diff128}")
+    controls128 = {}
+    for name, attn in faults.items():
+        bad = make_prefill_step(cfg, flash=attn)(params, {"tokens": prompts})
+        cd, _, csame = _logit_diff(bad, replay, v)
+        controls128[name] = {"rel_diff": cd / scale128, "top1_agree": csame}
+        log(f"lm: control {name} vs the replay: {cd / scale128:.4f} x "
+            f"max|logit| (must exceed {REPLAY_REL_BOUND:.4f}); argmax agrees "
+            f"in {csame}/{batch}")
+        require(cd > REPLAY_REL_BOUND * scale128,
+                f"replay check passes the {name} control ({cd})")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"lm: peak device memory {peak_gb:.2f} GB")
+    del params
+    return {"model": cfg.name, "layers": n_layers, "init_s": init_s,
+            "param_gb": param_gb, "prefill_batch": batch, "prefill_seq": seq,
+            "prefill_s": prefill_s, "prefill_tokens_per_s": tok_s,
+            "prefill_launches": launches, "plain_prefill_s": plain_s,
+            "logit_rel_bound": PREFILL_REL_BOUND,
+            "replay_logit_rel_bound": REPLAY_REL_BOUND,
+            "prefill_controls": controls, "replay_controls": controls128,
+            "prefill_vs_plain_max_diff": diff, "prefill_max_logit": scale,
+            "prefill_vs_plain_top1_agree": same,
+            "serve_prompt_len": prompt_len, "serve_gen_len": gen_len,
+            "serve_s": serve_s, "decode_tokens_per_s": decode_median,
+            "decode_window_tokens_per_s": windows,
+            "decode_step_ms": step_ms, "decode_launches": decode_launches,
+            "prefill128_launches": short_launches,
+            "prefill128_vs_replay_max_diff": diff128,
+            "prefill128_max_logit": scale128,
+            "prefill128_vs_replay_argmax_agree": same128,
+            "peak_gb": peak_gb}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -612,12 +943,20 @@ def main() -> int:
         f"{fused['factor_s']:.3f}s")
     del a, lref
     mxp = mxp_fused(args.mxp_n, args.tb, dev)   # 5. mixed precision
+    torch.cuda.empty_cache()                    # 6. LM serving
+    log(f"lm: device memory in use before the model "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 20:.0f} MiB")
+    checks.update(flash_checks(dev, g))
+    lm = lm_serving(dev, args.seed)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         if name == "fused_column_step":
             row = checks[f"{name}[float32,R=32,K=32,diag=1]"]
             launches = fused["launches"][name]
+        elif name == "flash_attention":
+            row = checks[f"{name}[prefill]"]
+            launches = lm["prefill_launches"][name]
         else:
             row = checks[f"{name}[float32]"]
             launches = main["launches"][name]
@@ -633,9 +972,9 @@ def main() -> int:
     outdir.mkdir(exist_ok=True)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
-         "fused": fused, "mxp": mxp, "kernels": kernels}, indent=1))
+         "fused": fused, "mxp": mxp, "lm": lm, "kernels": kernels}, indent=1))
     log(card)
-    print(json.dumps({"kernels": kernels}))     # 6. kernels line
+    print(json.dumps({"kernels": kernels}))     # 7. kernels line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

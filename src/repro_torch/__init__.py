@@ -7,13 +7,17 @@ Hopper kernels for the tile ops.  It imports ``torch``, numpy and scipy,
 never ``jax`` or ``repro``.  Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 
-The port covers the single-device path: tiling, precision plans,
-schedules, the op-stream executor (op by op, or one fused launch per
-column step with ``fuse_columns``), blocked solves, the four per-op
-kernels (GEMM, SYRK, TRSM, POTRF) and the fused column-step kernel.  See
-ROADMAP.md for what follows.
+The port covers the single-device Cholesky path: tiling, precision plans,
+schedules, the op-stream executor (op by op, or one fused launch per column
+step with ``fuse_columns``), blocked solves, the four per-op kernels (GEMM,
+SYRK, TRSM, POTRF) and the fused column-step kernel.  It also covers the
+LM scaffold's serving path for the dense family (``configs``, ``models``,
+``launch``: prefill through the hand-written flash attention kernel, and
+the decode server), with ``convert.params_from_reference`` to carry the
+reference's weights across.  Every TPU kernel of the reference has its
+Hopper counterpart.  See ROADMAP.md for what follows.
 """
-from repro_torch.convert import config_from_reference
+from repro_torch.convert import config_from_reference, params_from_reference
 from repro_torch.core.api import (CholeskyConfig, CholeskyPlan, OOCSolver,
                                   clear_plan_cache, plan, plan_cache_stats)
 from repro_torch.core.cholesky import make_torch_executor, plan_for_matrix
@@ -31,7 +35,7 @@ __version__ = "0.1.0"
 __all__ = [
     "__version__",
     "CholeskyConfig", "CholeskyPlan", "OOCSolver", "plan", "clear_plan_cache",
-    "plan_cache_stats", "config_from_reference",
+    "plan_cache_stats", "config_from_reference", "params_from_reference",
     "make_torch_executor", "plan_for_matrix",
     "LADDERS", "PrecisionPlan", "assign_precision", "uniform_plan",
     "MultiDeviceSchedule", "Op", "OpKind", "Schedule",

@@ -1,11 +1,17 @@
-"""Carry a reference configuration across to the port.
+"""Carry a reference configuration or LM parameter tree across to the port.
 
-The reference has no weights: its state is the config, the precision plan
-(a ``classes`` int8 array, a ``ladder`` tuple and ``eps_target``) and the
-tile store.  :func:`config_from_reference` takes the reference config as
-plain Python/numpy values, ``dataclasses.asdict(repro.CholeskyConfig(...))``
-(which turns the plan into a dict of those three fields), and returns the
-port's :class:`~repro_torch.core.api.CholeskyConfig` with the same plan.
+The Cholesky reference has no weights: its state is the config, the
+precision plan (a ``classes`` int8 array, a ``ladder`` tuple and
+``eps_target``) and the tile store.  :func:`config_from_reference` takes the
+reference config as plain Python/numpy values,
+``dataclasses.asdict(repro.CholeskyConfig(...))`` (which turns the plan into
+a dict of those three fields), and returns the port's
+:class:`~repro_torch.core.api.CholeskyConfig` with the same plan.
+
+:func:`params_from_reference` takes the LM scaffold's parameter tree
+(``repro.models.transformer.init_model``) as numpy arrays and returns the
+port's :class:`~repro_torch.models.transformer.Model` holding the same
+values.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import torch
 
 from .core.api import CholeskyConfig
 from .core.precision import PrecisionPlan
+from .models.transformer import Model, _regions
 
 _BACKENDS = {"jax": "torch", "auto": "auto", "numpy": "numpy"}
 _DTYPES = {"float64": torch.float64, "float32": torch.float32,
@@ -49,3 +56,41 @@ def config_from_reference(fields: dict) -> CholeskyConfig:
         if f.get(key) is not None:
             f[key] = tuple(f[key])
     return CholeskyConfig(**f)
+
+
+def _flatten(tree, prefix: str, out: dict) -> dict:
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            _flatten(sub, f"{prefix}{key}.", out)
+    else:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def params_from_reference(tree: dict, cfg, device="cuda") -> Model:
+    """The port's model for a reference parameter tree of numpy arrays.
+
+    The reference keeps ``prefix`` and ``remainder`` layers as lists and
+    the scanned region as ``stack``: a list of ``scan_group`` layer dicts
+    whose leaves carry a leading ``n_groups`` axis.  Here the layers are
+    one list in layer order: the prefix, then group by group the stack's
+    j-th layer, then the remainder.  With tied embeddings there is no
+    ``unembed``."""
+    _, n_groups, _ = _regions(cfg)
+    layers = [_flatten(lp, "", {}) for lp in tree["prefix"]]
+    if tree.get("stack") is not None:
+        group = [_flatten(lp, "", {}) for lp in tree["stack"]]
+        layers += [{k: v[g] for k, v in lp.items()}
+                   for g in range(n_groups) for lp in group]
+    layers += [_flatten(lp, "", {}) for lp in tree["remainder"]]
+    flat = {"embed.tok": tree["embed"]["tok"],
+            "final_norm": tree["final_norm"]}
+    if not cfg.tie_embeddings:
+        flat["unembed.out"] = tree["unembed"]["out"]
+    for n, layer in enumerate(layers):
+        flat.update({f"layers.{n}.{k}": v for k, v in layer.items()})
+    state = {k: torch.from_numpy(np.array(v)).to(device)
+             for k, v in flat.items()}
+    model = Model(cfg, None, "meta")
+    model.load_state_dict(state, strict=True, assign=True)
+    return model

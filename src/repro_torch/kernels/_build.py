@@ -22,7 +22,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = ("mxp_gemm", "syrk", "trsm", "potrf", "fused_column")
+SOURCES = ("mxp_gemm", "syrk", "trsm", "potrf", "fused_column",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

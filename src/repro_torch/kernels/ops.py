@@ -7,16 +7,18 @@ launches the CUDA kernel on a CUDA tensor and runs the plain version on a
 CPU tensor.  The fused column step takes its kernel in f64 too, as the
 reference's does.
 
-Two counters: :func:`call_counts` counts every dispatch here, whatever the
-device (the reference's ``tile_op`` count for the four tile ops and its
-``fused_column`` count for ``fused_column_step``); :func:`launch_counts`
-counts CUDA kernel launches only, one per launch, kept by each kernel's
-wrapper.
+Two counters: :func:`call_counts` counts every tile-op dispatch here,
+whatever the device (the reference's ``tile_op`` count for the four tile ops
+and its ``fused_column`` count for ``fused_column_step``);
+:func:`launch_counts` counts CUDA kernel launches only, one per launch, kept
+by each kernel's wrapper, for the tile kernels and the flash attention
+kernel of the LM path (``models.attention`` calls its wrapper directly).
 """
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _flash
 from . import fused_column as _fused
 from . import mxp_gemm as _gemm
 from . import potrf as _potrf
@@ -24,8 +26,9 @@ from . import syrk as _syrk
 from . import trsm as _trsm
 from .ref import cholesky_nan
 
-KERNELS = {"mxp_gemm_update": _gemm, "syrk_update": _syrk, "trsm": _trsm,
-           "potrf": _potrf, "fused_column_step": _fused}
+TILE_OPS = {"mxp_gemm_update": _gemm, "syrk_update": _syrk, "trsm": _trsm,
+            "potrf": _potrf, "fused_column_step": _fused}
+KERNELS = {**TILE_OPS, "flash_attention": _flash}
 
 #: the stock f64 path: the same functions the reference's XLA path runs
 STOCK = {
@@ -36,7 +39,7 @@ STOCK = {
     "gemm": lambda c, a, b: c - a @ b.T,
 }
 
-_CALLS = {name: 0 for name in KERNELS}
+_CALLS = {name: 0 for name in TILE_OPS}
 
 
 def launch_counts() -> dict:
@@ -50,8 +53,9 @@ def call_counts() -> dict:
 
 
 def reset_counts() -> None:
-    for name, mod in KERNELS.items():
+    for mod in KERNELS.values():
         mod.launches = 0
+    for name in _CALLS:
         _CALLS[name] = 0
 
 

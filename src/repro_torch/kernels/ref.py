@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the four tile kernels (twins of repro.kernels.ref)
-and the class round that the executor and the fused kernel's epilogue share.
+"""Plain PyTorch versions of the four tile kernels (twins of repro.kernels.ref),
+the class round that the executor and the fused kernel's epilogue share, and
+straightforward f32 attention, the plain version of the flash kernel.
 
 Each function computes what its CUDA kernel computes: f32 arithmetic on
 f32, bf16 or fp8 operands (widened first; PyTorch has no fp8 matmul on
@@ -10,6 +11,8 @@ package, and the smoke script holds each kernel against its twin on the
 card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -115,3 +118,30 @@ def gemm_update_ref(c: torch.Tensor, a: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """C - A @ B^T with a wide accumulator, in C's type."""
     return (_wide(c) - _wide(a) @ _wide(b).T).to(c.dtype)
+
+
+#: the flash kernel's finite mask value (repro.kernels.flash_attention)
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """softmax((q k^T) / sqrt(hd)) v in f32, in q's type.
+
+    q: [BH, S, hd]; k/v: [BKV, T, hd]; query row bh reads KV row bh // g
+    (g = BH / BKV).  The causal mask keeps kj <= qi from position 0 and
+    writes -1e30 elsewhere; the output is (p v) / max(l, 1e-30), with the
+    flash kernel's constants."""
+    bh, s, hd = q.shape
+    g = bh // k.shape[0]
+    kf = k.float().repeat_interleave(g, dim=0)
+    vf = v.float().repeat_interleave(g, dim=0)
+    sc = torch.matmul(q.float(), kf.transpose(1, 2)).mul_(1.0 / math.sqrt(hd))
+    if causal:
+        t = k.shape[1]
+        above = (torch.arange(t, device=q.device)[None, :]
+                 > torch.arange(s, device=q.device)[:, None])
+        sc.masked_fill_(above, NEG_INF)
+    p = sc.sub_(sc.amax(dim=-1, keepdim=True)).exp_()
+    out = torch.matmul(p, vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.to(q.dtype)

@@ -65,7 +65,8 @@ def test_cuda_kernels_match_plain(cuda, n, dtype):
     ]
     torch.cuda.synchronize()
     assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 1),
-                                   "fused_column_step": 0}
+                                   "fused_column_step": 0,
+                                   "flash_attention": 0}
     for name, got, want, atol, rtol in cases:
         assert got.dtype == want.dtype, name
         torch.testing.assert_close(got.double(), want.double(), atol=atol,
@@ -102,7 +103,7 @@ def test_cuda_executor_runs_the_kernels(cuda):
         "mxp_gemm_update": sched.count(OpKind.GEMM),
         "syrk_update": sched.count(OpKind.SYRK),
         "trsm": sched.count(OpKind.TRSM), "potrf": sched.count(OpKind.POTRF),
-        "fused_column_step": 0}
+        "fused_column_step": 0, "flash_attention": 0}
     assert np.abs(l - np.linalg.cholesky(a)).max() < 5e-3
 
 
@@ -219,3 +220,116 @@ def test_cuda_fused_executor_one_launch_per_column(cuda):
     assert counts.pop("fused_column_step") == n // tb
     assert set(counts.values()) == {0}
     assert np.abs(l - np.linalg.cholesky(a)).max() < 5e-3
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+_FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}    # tests/test_flash_attention.py
+# each output row at its own scale (chip_smoke.py's FLASH_ROW_TOL and
+# FLASH_ACC): one ulp of the row's largest value, plus _FLASH_ACC f32 quanta
+# of max|v| for the two summation orders
+_FLASH_ROW_TOL = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
+_FLASH_ACC = 8
+
+
+def _flash_row_ratio(got, want, v, tol):
+    """The worst row's max|got - want| over its allowance."""
+    err = (got.double() - want.double()).abs().amax(dim=-1)
+    allow = (tol * want.double().abs().amax(dim=-1)
+             + _FLASH_ACC * 2.0 ** -24 * float(v.abs().max()))
+    return float((err / allow).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 5, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+def test_cuda_flash_matches_plain(cuda, hd, causal, dtype, group):
+    """The kernel against flash_gqa_ref in model layout: causal at S = T =
+    256, full at S = 100, T = 200 (ragged query and KV tiles).  Each row is
+    held at its own scale, and that check must reject the plain version
+    without the last 64 keys (a dropped KV tile) and a zeroed output."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = _TORCH[dtype]
+    b, kv = 2, 2
+    s, t = (256, 256) if causal else (100, 200)
+    rng = np.random.default_rng(hd + group)
+
+    def rand(*shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(x).to(cuda, dt)
+
+    q, k, v = rand(b, s, kv * group, hd), rand(b, t, kv, hd), rand(b, t, kv, hd)
+    ops.reset_counts()
+    got = fa.flash_gqa(q, k, v, causal=causal)
+    want = fa.flash_gqa_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dt and got.shape == q.shape
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.double(), want.double(), atol=tol, rtol=tol)
+    row_tol = _FLASH_ROW_TOL[dtype]
+    assert _flash_row_ratio(got, want, v, row_tol) <= 1.0
+    dropped = fa.flash_gqa_ref(q, k[:, :-64], v[:, :-64], causal=causal,
+                               bq=s, bk=t - 64)
+    assert _flash_row_ratio(got, dropped, v, row_tol) > 1.0
+    assert _flash_row_ratio(torch.zeros_like(got), want, v, row_tol) > 1.0
+    # the [BH, S, hd] layout of flash_attention gives the same values
+    flat = fa.flash_attention(q.transpose(1, 2).reshape(-1, s, hd).contiguous(),
+                              k.transpose(1, 2).reshape(-1, t, hd).contiguous(),
+                              v.transpose(1, 2).reshape(-1, t, hd).contiguous(),
+                              causal=causal)
+    assert torch.equal(flat.reshape(b, -1, s, hd).transpose(1, 2), got)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_other_head_dims(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    x = torch.zeros(1, 128, 2, 96, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_gqa(x, x, x)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_non_contiguous_operands(cuda):
+    """No quiet copy on the card: a strided q raises, as the tile kernels'
+    operands do."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros(1, 4, 128, 64, device=cuda).transpose(1, 2)
+    k = torch.zeros(1, 128, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_gqa(q, k, k)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_step_launches_flash_per_layer(cuda):
+    """One prefill step of a two-layer dense model in bf16 at S = 128: one
+    flash launch per layer, and the last-position logits of the plain
+    attention within bf16's reach (2^-8 relative, of logits below 4)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_gqa_ref
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("qwen3-14b", smoke=True),
+                              head_dim=64, dtype="bfloat16",
+                              use_flash_attention=True)
+    params = T.init_model(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 128))).to(cuda)
+    ops.reset_counts()
+    got = make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    want = make_prefill_step(cfg, flash=flash_gqa_ref)(params,
+                                                       {"tokens": tokens})
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    v = cfg.vocab
+    assert torch.isfinite(got[:, :v]).all()
+    assert (got[:, v:] <= -1e29).all()
+    torch.testing.assert_close(got[:, :v].float(), want[:, :v].float(),
+                               atol=4 * 2.0 ** -8 * 4, rtol=0)
