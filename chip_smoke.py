@@ -6,13 +6,15 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: the five kernels from ``src/repro_torch/kernels/csrc``, one
+2. build: the six kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all at once;
 3. kernel check: each per-op kernel against its plain PyTorch version on
    the card at the main path's tile size (f32) and at bf16 (fp8 operands
    for the GEMM), with the tolerances of ``tests/test_kernels.py``, and its
    time beside the plain version's, one PyTorch library call's and its
-   bound; then the fused column step against its plain version: every
+   bound; the blocked POTRF and TRSM also at ragged sizes, each held to its
+   residual at its own scale (a dropped block update must fail that check),
+   and a pivot failing inside a block; then the fused column step against its plain version: every
    storage class in f32 and f64, the epilogue bitwise, f32 at the main
    path's mid-factorization shape (R = K = 32) and f64 at R = K = 8, timed
    beside its plain version, its bound and the four per-op kernels doing
@@ -159,7 +161,7 @@ def kernel_checks(tb: int, dev, g) -> dict:
                         1.0 * tb ** 3, 3 * tb * tb * 4),
                     "potrf": (
                         potrf.potrf, ref.potrf_ref, (c,), t, t,
-                        lambda: torch.linalg.cholesky(c),
+                        lambda: torch.linalg.cholesky_ex(c),
                         tb ** 3 / 3.0, 2 * tb * tb * 4),
                 })
             for name, (kern, plain, args, atol, rtol, library, flops,
@@ -175,7 +177,7 @@ def kernel_checks(tb: int, dev, g) -> dict:
                 row = {"dtype": str(dt).replace("torch.", ""),
                        "max_abs_err": err, "atol": atol, "rtol": rtol}
                 if dt == torch.float32:     # the main path's dtype: timed
-                    reps = 50 if name != "potrf" else 10
+                    reps = 50
                     bound_f = flops / PEAK_F32_FLOPS * 1e3
                     bound_b = nbytes / PEAK_HBM_BYTES * 1e3
                     row.update({
@@ -186,10 +188,145 @@ def kernel_checks(tb: int, dev, g) -> dict:
                         "bound_by": ("operations" if bound_f >= bound_b
                                      else "bytes"),
                         "flops": flops, "bytes": nbytes})
+                    if name == "potrf":
+                        # cholesky checks its info on the host after each
+                        # call (a sync); cholesky_ex does not. The faster
+                        # of the two is the yardstick
+                        row["library_cholesky_ms"] = time_ms(
+                            lambda: torch.linalg.cholesky(c), reps)
+                        row["library_cholesky_ex_ms"] = row["library_ms"]
+                        row["library"] = "torch.linalg.cholesky_ex"
+                        if row["library_cholesky_ms"] < row["library_ms"]:
+                            row["library_ms"] = row["library_cholesky_ms"]
+                            row["library"] = "torch.linalg.cholesky"
                 results[tag] = row
                 log(f"kernel {tag}: " + json.dumps(row))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return results
+
+
+# The blocked POTRF and TRSM are also held to their residuals, each at its
+# own scale, in units of the output type's roundoff (EPS_OUT): TRSM's max
+# over rows of |X L^T - C|_row / (max|X_row| max|L| n), POTRF's max|L L^T -
+# sym(A)| / (max|A| n). A backward-stable factor or solve reaches at most
+# about (n + 1) units there. The card's readings over seeds 0-2
+# (benchmarks/torch_tile_bounds.py, NVIDIA H100 80GB HBM3, 700 W) are at
+# most 1.48 units (POTRF at n = 1, where sqrt, the division and the square
+# each round once; 0.41 for TRSM at n = 1; at most 0.17 past n = 1), and the
+# bound is a little over three times that. For f32 outputs past one 64-wide
+# block, two controls must fail the same check: the plain solve against an L
+# whose block (J, J - 1) is zeroed (1,438 units or more), and the blocked
+# factor with one trailing update left out (50 or more, at n = 1000). A bf16
+# output's own rounding is larger than what one dropped block moves, so the
+# controls are f32's.
+BACKWARD_C = 5
+EPS_OUT = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
+BLOCK = 64          # the kernels' block edge (repro_torch.kernels.potrf.NB)
+RAGGED = (1, 31, 33, 100, 257, 513, 1000)
+NAN_PIVOT = 100     # the failing pivot of the NaN check, inside a block
+
+
+def trsm_backward(x, l, c) -> float:
+    xd, ld, cd = x.double(), l.double(), c.double()
+    res = (xd @ ld.T - cd).abs().amax(dim=1)
+    scale = xd.abs().amax(dim=1).clamp_min(1e-300) * ld.abs().max() * ld.shape[0]
+    return float((res / scale).max()) / EPS_OUT[x.dtype]
+
+
+def potrf_backward(lf, a) -> float:
+    ld, ad = lf.double(), a.double()
+    res = (ld @ ld.T - 0.5 * (ad + ad.T)).abs().max()
+    return float(res / (ad.abs().max() * ad.shape[0])) / EPS_OUT[lf.dtype]
+
+
+def potrf_dropped_update(a, nb=BLOCK):
+    """The blocked right-looking factor in f64 with the update of tile
+    (last, 1) left out at the first step ((1, 1) for two block columns)."""
+    w = 0.5 * (a.double() + a.double().T)
+    n = w.shape[0]
+    nt = -(-n // nb)
+    for kt in range(nt):
+        k0, k1 = kt * nb, min(n, (kt + 1) * nb)
+        w[k0:k1, k0:k1] = torch.linalg.cholesky(w[k0:k1, k0:k1])
+        if k1 == n:
+            break
+        w[k1:, k0:k1] = torch.linalg.solve_triangular(
+            w[k0:k1, k0:k1].T, w[k1:, k0:k1], upper=True, left=False)
+        for i in range(kt + 1, nt):
+            for j in range(kt + 1, i + 1):
+                if kt == 0 and (i, j) == (nt - 1, 1):
+                    continue
+                i0, i1 = i * nb, min(n, (i + 1) * nb)
+                j0, j1 = j * nb, min(n, (j + 1) * nb)
+                w[i0:i1, j0:j1] -= w[i0:i1, k0:k1] @ w[j0:j1, k0:k1].T
+    return torch.tril(w).to(a.dtype)
+
+
+def trsm_dropped_block(l, c, nb=BLOCK):
+    """X solved against L with its block (J, J - 1) zeroed, J the last."""
+    lz = l.double().clone()
+    j0 = (l.shape[0] - 1) // nb * nb
+    lz[j0:, j0 - nb:j0] = 0.0
+    return torch.linalg.solve_triangular(lz.T, c.double(), upper=True,
+                                         left=False).to(c.dtype)
+
+
+def blocked_checks(tb: int, dev, g) -> dict:
+    """POTRF and TRSM at the ragged sizes and at ``tb``, both types: the
+    old tolerances against the plain version, each residual at its own
+    scale, the controls; then a pivot failing inside a block."""
+    from repro_torch.kernels import potrf, ref, trsm
+    tol = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for n in RAGGED + (tb,):
+            a = _spd(n, g, dev, dt)
+            l = torch.linalg.cholesky(a.double()).to(dt).contiguous()
+            c = torch.randn(n, n, generator=g, device=dev).to(dt)
+            for name, kern, plain, args, resid, control, t in (
+                    ("potrf", potrf.potrf, ref.potrf_ref, (a,),
+                     potrf_backward, potrf_dropped_update, tol[dt]),
+                    ("trsm", trsm.trsm, ref.trsm_ref, (l, c), trsm_backward,
+                     trsm_dropped_block, 20 * tol[dt])):
+                got = kern(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                tag = f"{name}[{str(dt)[6:]},n={n}]"
+                torch.testing.assert_close(
+                    got.double(), want.double(), atol=t, rtol=t,
+                    msg=lambda m, tag=tag: f"{tag}: {m}")
+                ratio = resid(got, *args)
+                ctrl = (resid(control(*args), *args)
+                        if n > BLOCK and dt == torch.float32 else None)
+                row = {"max_abs_err": float((got.double() - want.double())
+                                            .abs().max()),
+                       "residual_units": ratio, "control_units": ctrl}
+                log(f"blocked {tag}: " + json.dumps(row))
+                require(ratio <= BACKWARD_C,
+                        f"{tag}: residual {ratio} units > {BACKWARD_C}")
+                require(ctrl is None or not ctrl <= BACKWARD_C,
+                        f"{tag}: the dropped-block control passes ({ctrl})")
+                results[tag] = row
+    # a pivot failing inside a block: columns < j are the factor of the
+    # leading j x j part, every lower entry of columns >= j is NaN
+    j, n = NAN_PIVOT, 2 * tb if tb > NAN_PIVOT else 2 * NAN_PIVOT
+    a = _spd(n, g, dev, torch.float64)
+    a[j, j] = -5.0
+    got = potrf.potrf(a.float()).double()
+    lead = torch.linalg.cholesky(a[:j, :j])
+    below = torch.linalg.solve_triangular(lead.T, a[j:, :j], upper=True,
+                                          left=False)
+    err = float((got[:, :j] - torch.cat([lead, below])).abs().max())
+    lower = torch.tril(torch.ones(n - j, n - j, dtype=torch.bool, device=dev))
+    all_nan = bool(torch.isnan(got[j:, j:][lower]).all())
+    log(f"blocked potrf, pivot {j} of {n} below zero: columns < {j} within "
+        f"{err:.3e} of the leading factor; every lower entry of columns >= "
+        f"{j} NaN: {all_nan}")
+    require(err <= tol[torch.float32] and all_nan,
+            f"potrf NaN pivot: err {err}, all NaN {all_nan}")
+    results["potrf[nan pivot]"] = {"pivot": j, "n": n, "max_abs_err": err,
+                                   "lower_nan": all_nan}
     return results
 
 
@@ -934,6 +1071,7 @@ def main() -> int:
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     checks = kernel_checks(args.tb, dev, g)     # 3. kernel check
+    checks.update(blocked_checks(args.tb, dev, g))
     checks.update(fused_checks(args.tb, dev, g))
     a = make_spd(args.n, dev, args.seed)        # 4. main path
     lref = torch.linalg.cholesky(a)

@@ -1,9 +1,13 @@
 // Shared helpers of the port's tile kernels: element loads that widen the
-// storage types to f32, the f32 -> storage narrowing, and a warp sum.
+// storage types to f32, and the f32 -> storage narrowing.
 //
 // Every kernel computes in f32 with FFMA only (no tensor cores, so no TF32):
 // the precision classifier assumes the f32 class rounds at 2^-24
-// (core/precision.py, EPS["f32"]).
+// (core/precision.py, EPS["f32"]). The blocked POTRF and TRSM
+// (tri_block.cuh) take their quotients by Markstein's correction and their
+// square roots by a Newton step from rsqrt, within an ulp of IEEE division
+// and sqrt, and redo a diagonal block or a row with the IEEE operations
+// wherever a value is not finite.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,11 +32,4 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }

@@ -1,9 +1,14 @@
 """Triangular solve ``X @ L^T = C`` (port of repro.kernels.trsm).
 
 Every TRSM op of the schedule.  On a CUDA tensor :func:`trsm` launches
-``csrc/trsm.cu`` (one warp per row of C, forward substitution over the
-columns in f32); on CPU tensors it runs the plain version,
+``csrc/trsm.cu``: a blocked forward substitution in f32, one block per
+panel of ROWS rows of C, walking L's 64-column blocks (a register-tiled
+FFMA update from the solved columns, then a solve against the diagonal
+block in shared memory).  On CPU tensors it runs the plain version,
 :func:`repro_torch.kernels.ref.trsm_ref`.
+
+The launch geometry is computed here, as plain functions the CPU tests
+check, and the kernel refuses any other.
 """
 from __future__ import annotations
 
@@ -14,11 +19,36 @@ import torch
 from . import _build
 from .ref import trsm_ref
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_N = 4096    # eight rows of n f32 in shared memory (128 KiB)
+MAX_N = 4096    # a block's ROWS rows of X, n f32 each, in shared memory
+NB = 64         # column block edge (csrc/tri_block.cuh)
+KC = 64         # columns of L's panel staged at a time (csrc/trsm.cu)
+ROWS = 4        # rows of C a block, a warp each in the solve (csrc/trsm.cu)
 
 launches = 0    # kernel launches since the last ops.reset_counts()
+
+
+def blocks(m: int) -> int:
+    """Blocks of a launch: one per ROWS rows of C."""
+    return -(-m // ROWS)
+
+
+def smem_bytes(n: int) -> int:
+    """Shared memory a block: its rows of X, one staged chunk of L's panel
+    and the diagonal block (NB + 1 floats a row), its diagonal and the
+    diagonal's reciprocals."""
+    return 4 * (ROWS * n + KC * (NB + 1) + NB * (NB + 1) + 2 * NB)
+
+
+def block_rows(m: int, block: int) -> range:
+    """Rows of C that ``block`` solves (warps past m idle)."""
+    return range(block * ROWS, min(m, (block + 1) * ROWS))
+
+
+def column_blocks(n: int) -> list[tuple[int, int]]:
+    """(first column, width) of each column block of the walk."""
+    return [(j0, min(NB, n - j0)) for j0 in range(0, n, NB)]
 
 
 def trsm(l: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -38,6 +68,7 @@ def trsm(l: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(c.device):
         err = fn(l.data_ptr(), c.data_ptr(), out.data_ptr(), m, n,
                  _build.DTYPE_CODES[l.dtype], _build.DTYPE_CODES[c.dtype],
+                 ROWS, blocks(m), smem_bytes(n),
                  torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(err, "trsm")
     launches += 1

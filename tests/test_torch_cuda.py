@@ -46,6 +46,96 @@ def _cuda_cases():
     return [(n, d) for n in (64, 96, 512) for d in DTYPES]
 
 
+# --------------------------------------------------------------------------
+# backward error of the blocked POTRF and TRSM, each at its own scale
+# --------------------------------------------------------------------------
+
+# chip_smoke.py's BACKWARD_C: the residual of a blocked kernel is held to
+# BACKWARD_C units of the output type's roundoff at the residual's own scale
+# (_EPS_OUT).  A backward-stable factor or solve reaches at most about
+# (n + 1) units there; the card's readings over three seeds stay below 1.5
+# (n = 1: sqrt, the division and the square each round once) and a dropped
+# block update reads 50 or more (benchmarks/torch_tile_bounds.py).
+BACKWARD_C = 5
+_EPS_OUT = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
+_NB = 64            # the kernels' block edge (repro_torch.kernels.potrf.NB)
+
+
+def _trsm_backward(x, l, c):
+    """max over rows of |X L^T - C|_row / (max|X_row| max|L| n), in units
+    of X's roundoff."""
+    xd, ld, cd = x.double(), l.double(), c.double()
+    res = (xd @ ld.T - cd).abs().amax(dim=1)
+    scale = xd.abs().amax(dim=1).clamp_min(1e-300) * ld.abs().max() * ld.shape[0]
+    return float((res / scale).max()) / _EPS_OUT[x.dtype]
+
+
+def _potrf_backward(lf, a):
+    """max|L L^T - sym(A)| / (max|A| n), in units of L's roundoff."""
+    ld, ad = lf.double(), a.double()
+    res = (ld @ ld.T - 0.5 * (ad + ad.T)).abs().max()
+    return float(res / (ad.abs().max() * ad.shape[0])) / _EPS_OUT[lf.dtype]
+
+
+def _potrf_dropped_update(a, nb=_NB):
+    """The blocked right-looking factor in f64 with one trailing update
+    left out: tile (last, 1) at the first step (tile (1, 1) for two block
+    columns). A kernel that drops one update computes this."""
+    ad = 0.5 * (a.double() + a.double().T)
+    n = ad.shape[0]
+    nt = -(-n // nb)
+    drop = (nt - 1, 1)
+    w = ad.clone()
+    for kt in range(nt):
+        k0, k1 = kt * nb, min(n, (kt + 1) * nb)
+        w[k0:k1, k0:k1] = torch.linalg.cholesky(w[k0:k1, k0:k1])
+        if k1 == n:
+            break
+        w[k1:, k0:k1] = torch.linalg.solve_triangular(
+            w[k0:k1, k0:k1].T, w[k1:, k0:k1], upper=True, left=False)
+        for i in range(kt + 1, nt):
+            for j in range(kt + 1, i + 1):
+                if kt == 0 and (i, j) == drop:
+                    continue
+                i0, i1, j0, j1 = i * nb, min(n, (i + 1) * nb), j * nb, min(
+                    n, (j + 1) * nb)
+                w[i0:i1, j0:j1] -= w[i0:i1, k0:k1] @ w[j0:j1, k0:k1].T
+    return torch.tril(w)
+
+
+def _trsm_dropped_block(l, c, nb=_NB):
+    """X solved against L with its block (J, J - 1) zeroed, J the last
+    block row: a kernel that drops one block of its update computes this."""
+    lz = l.double().clone()
+    j0 = (l.shape[0] - 1) // nb * nb
+    lz[j0:, j0 - nb:j0] = 0.0
+    return torch.linalg.solve_triangular(lz.T, c.double(), upper=True,
+                                         left=False).to(c.dtype)
+
+
+def _check_blocked(name, got, args, control=True):
+    """The blocked kernel's residual within BACKWARD_C units; for an f32
+    output past one block (and ``control``), the control with one block
+    update dropped must fail.  (A bf16 output's own rounding, 2^-8 of an entry, is larger than
+    what one dropped block moves at this scale, so there the residual check
+    holds the kernel to its rounding and the controls are f32's.)"""
+    n = args[0].shape[0]
+    controlled = control and n > _NB and got.dtype == torch.float32
+    if name == "potrf":
+        (a,) = args
+        ratio = _potrf_backward(got, a)
+        ctrl = (_potrf_backward(_potrf_dropped_update(a).to(got.dtype), a)
+                if controlled else None)
+    else:
+        l, c = args
+        ratio = _trsm_backward(got, l, c)
+        ctrl = (_trsm_backward(_trsm_dropped_block(l, c), l, c)
+                if controlled else None)
+    assert ratio <= BACKWARD_C, (name, n, ratio)
+    if ctrl is not None:
+        assert not ctrl <= BACKWARD_C, (name, n, "control passes", ctrl)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,dtype", _cuda_cases())
 def test_cuda_kernels_match_plain(cuda, n, dtype):
@@ -71,6 +161,120 @@ def test_cuda_kernels_match_plain(cuda, n, dtype):
         assert got.dtype == want.dtype, name
         torch.testing.assert_close(got.double(), want.double(), atol=atol,
                                    rtol=rtol, msg=name)
+    _check_blocked("potrf", cases[0][1], (spd,))
+    _check_blocked("trsm", cases[1][1], (l, m1))
+
+
+_RAGGED = [1, 31, 33, 100, 257, 513, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", _RAGGED)
+def test_cuda_blocked_ragged(cuda, n, dtype):
+    """Sizes that are not a multiple of the 64-wide blocks: the old
+    tolerances against the plain version, the residual at its own scale,
+    and the dropped-update controls."""
+    dt, tol = _TORCH[dtype], _tol(dtype)
+    spd = torch.from_numpy(_spd(n, seed=n)).to(cuda, dt)
+    c = torch.from_numpy(_mat(n, seed=n + 1)).to(cuda, dt)
+    l = torch.linalg.cholesky(spd.double()).to(dt).contiguous()
+    ops.reset_counts()
+    got_p, got_t = ops.potrf(spd), ops.trsm(l, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["potrf"] == 1
+    assert ops.launch_counts()["trsm"] == 1
+    torch.testing.assert_close(got_p.double(), ref.potrf_ref(spd).double(),
+                               atol=tol, rtol=tol)
+    assert not torch.triu(got_p, 1).any()
+    torch.testing.assert_close(got_t.double(), ref.trsm_ref(l, c).double(),
+                               atol=20 * tol, rtol=20 * tol)
+    _check_blocked("potrf", got_p, (spd,))
+    _check_blocked("trsm", got_t, (l, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_blocked_largest_sizes(cuda, dtype):
+    """The largest tiles the wrappers take: POTRF at n = 6144, whose grid
+    (18,145 blocks needed) is capped at what the card holds, so each phase
+    walks its work grid-stride; TRSM at n = 4096 (99 KiB of shared memory a
+    block).  POTRF's dropped-update control is not asked for here: with
+    the residual scaled by n, one dropped 64 x 64 update at n = 6144 reads
+    1.37 units on the card, inside the bound, so the bound checks the
+    kernel's rounding at this size, not its blocks (sizes up to 1000 and
+    the main path's 512 carry that control)."""
+    from repro_torch.kernels import potrf, trsm
+    dt, tol = _TORCH[dtype], _tol(dtype)
+    n = potrf.MAX_N
+    spd = torch.from_numpy(_spd(n, seed=11)).to(cuda, dt)
+    got = ops.potrf(spd)
+    torch.testing.assert_close(got.double(), ref.potrf_ref(spd).double(),
+                               atol=tol, rtol=tol)
+    _check_blocked("potrf", got, (spd,), control=False)
+    n = trsm.MAX_N
+    l = torch.linalg.cholesky(torch.from_numpy(_spd(n, seed=12)).to(
+        cuda).double()).to(dt).contiguous()
+    c = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (512, n)).astype(np.float32)).to(cuda, dt)
+    got = ops.trsm(l, c)
+    torch.testing.assert_close(got.double(), ref.trsm_ref(l, c).double(),
+                               atol=20 * tol, rtol=20 * tol)
+    _check_blocked("trsm", got, (l, c))
+
+
+_PAIRS = [(a, b) for a in DTYPES for b in DTYPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l_dtype,c_dtype", _PAIRS)
+@pytest.mark.parametrize("n", [64, 512])
+@pytest.mark.parametrize("m", [1, 7, 700])
+def test_cuda_trsm_rows_and_type_pairs(cuda, m, n, l_dtype, c_dtype):
+    """Row counts that leave a block's last warps idle (m = 1, 7) or need
+    more than one block per SM (m = 700), against both L sizes, for every
+    (L, C) type pair the kernel takes."""
+    tol = max(_tol(l_dtype), _tol(c_dtype))
+    rng = np.random.default_rng(m + n)
+    l = torch.linalg.cholesky(torch.from_numpy(_spd(n, seed=m)).double())
+    l = l.to(cuda, _TORCH[l_dtype]).contiguous()
+    c = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    c = c.to(cuda, _TORCH[c_dtype])
+    ops.reset_counts()
+    got = ops.trsm(l, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["trsm"] == 1
+    assert got.dtype == c.dtype and got.shape == c.shape
+    torch.testing.assert_close(got.double(), ref.trsm_ref(l, c).double(),
+                               atol=20 * tol, rtol=20 * tol)
+    _check_blocked("trsm", got, (l, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_potrf_nan_from_a_pivot_inside_a_block(cuda, dtype):
+    """The leading minor first fails at j = 100, inside the second 64-wide
+    block: columns < j are the factor of the leading j x j part, and every
+    lower entry of columns >= j is NaN, as the reference's column loop
+    (repro/kernels/potrf.py) gives through its sqrt."""
+    j, n = 100, 256
+    a = _spd(n, seed=3).astype(np.float64)
+    a[j, j] = -5.0                      # the pivot at j is below zero
+    assert np.all(np.linalg.eigvalsh(a[:j, :j]) > 0)
+    dt = _TORCH[dtype]
+    t = torch.from_numpy(a).to(cuda, dt)
+    got = ops.potrf(t).double()
+    torch.cuda.synchronize()
+    td = t.double()
+    lead = torch.linalg.cholesky(td[:j, :j])
+    below = torch.linalg.solve_triangular(lead.T, td[j:, :j], upper=True,
+                                          left=False)
+    torch.testing.assert_close(got[:, :j], torch.cat([lead, below]),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+    lower = torch.tril(torch.ones(n - j, n - j, dtype=torch.bool,
+                                  device=cuda))
+    assert torch.isnan(got[j:, j:][lower]).all()
+    assert not torch.isnan(got[:, :j]).any()
 
 
 @pytest.mark.cuda

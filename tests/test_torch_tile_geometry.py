@@ -1,0 +1,139 @@
+"""Launch geometry of the blocked POTRF and TRSM kernels, on the CPU.
+
+The wrappers ``repro_torch.kernels.potrf`` and ``repro_torch.kernels.trsm``
+compute each launch's geometry as plain functions (rows a block, blocks,
+shared memory a block, the cooperative grid) and the CUDA sources refuse
+any other, so these checks hold what the card runs: the shared memory
+stays within a block's 232,448 bytes (hopper-kernels guide, section 1) at
+every size the wrappers accept, and each row, column and tile of the work
+is covered exactly once.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build, potrf, trsm
+
+SMEM_LIMIT = 232_448        # bytes of shared memory a block can have (H100)
+RAGGED = [1, 31, 33, 63, 64, 65, 100, 257, 511, 512, 513, 1000]
+
+
+def test_potrf_shared_memory_fits_every_n():
+    # one buffer whatever n: phase A's block and factor, or phase B's slices
+    assert potrf.smem_bytes() <= SMEM_LIMIT
+    phase_a = 4 * (2 * potrf.NB * (potrf.NB + 1) + 2 * potrf.NB)
+    assert potrf.smem_bytes() == max(phase_a, 4 * 2 * potrf.NB * potrf.PAD)
+
+
+def test_trsm_shared_memory_fits_every_n():
+    sizes = np.array([trsm.smem_bytes(n) for n in range(1, trsm.MAX_N + 1)])
+    assert sizes.max() == trsm.smem_bytes(trsm.MAX_N) <= SMEM_LIMIT
+    assert (np.diff(sizes) == 4 * trsm.ROWS).all()
+
+
+def test_potrf_blocks_needed_every_n():
+    """The grid holds the widest phase of every step: the panel's rows at
+    WARPS a block, or the trailing TT x TT tiles at one a block."""
+    for n in range(1, potrf.MAX_N + 1):
+        widest = 1
+        for kb, width in potrf.steps(n):
+            rows = n - kb - width
+            mt = -(-rows // potrf.TT)
+            widest = max(widest, -(-rows // potrf.WARPS), mt * (mt + 1) // 2)
+        assert potrf.blocks_needed(n) == widest, n
+    assert potrf.blocks_needed(512) == 105
+
+
+@pytest.mark.parametrize("n", list(range(1, potrf.MAX_N + 1, 97)) + [potrf.MAX_N])
+def test_potrf_steps_cover_columns_once(n):
+    cols = np.zeros(n, int)
+    for kb, width in potrf.steps(n):
+        assert 1 <= width <= potrf.NB and kb % potrf.NB == 0
+        cols[kb:kb + width] += 1
+    assert (cols == 1).all()
+
+
+def _potrf_final_writes(n, grid):
+    """How often each entry of the factor gets its final value: in phase A
+    of the step that owns its column, from the diagonal block (block 0) or
+    a panel row (the warp of the block that owns the row)."""
+    count = np.zeros((n, n), int)
+    for kb, width in potrf.steps(n):
+        count[kb:kb + width, kb:kb + width][np.tril_indices(width)] += 1
+        for b in range(grid):
+            for i in potrf.panel_rows(n, kb, width, b, grid):
+                count[i, kb:kb + width] += 1
+    return count
+
+
+@pytest.mark.parametrize("n", RAGGED)
+@pytest.mark.parametrize("grid", ["needed", 1, 7, 132])
+def test_potrf_every_lower_entry_once(n, grid):
+    grid = potrf.blocks_needed(n) if grid == "needed" else grid
+    count = _potrf_final_writes(n, grid)
+    assert (np.tril(count) == np.tril(np.ones((n, n), int))).all()
+    assert not np.triu(count, 1).any()
+
+
+@pytest.mark.parametrize("n", RAGGED + [2048])
+@pytest.mark.parametrize("grid", ["needed", 1, 132])
+def test_potrf_trailing_tiles_once(n, grid):
+    """Each step's trailing update writes every lower entry of the trailing
+    matrix once (TT x TT tiles, block t % grid taking tile t, only entries
+    on or below the diagonal stored), and the panel's rows are solved once
+    each (a warp a row)."""
+    grid = potrf.blocks_needed(n) if grid == "needed" else grid
+    tt = potrf.TT
+    for kb, width in potrf.steps(n):
+        p0 = kb + width
+        tiles = potrf.trailing_tiles(n, kb)
+        count = np.zeros((n, n), int)
+        for b in range(grid):
+            for r0, c0 in tiles[b::grid]:
+                assert c0 <= r0 and (r0 - p0) % tt == 0 and (c0 - p0) % tt == 0
+                count[r0:r0 + tt, c0:c0 + tt] += 1
+        count = np.tril(count)
+        want = np.zeros((n, n), int)
+        want[p0:, p0:] = np.tril(np.ones((n - p0, n - p0), int))
+        assert (count == want).all()
+        rows = np.zeros(n, int)
+        for b in range(grid):
+            for i in potrf.panel_rows(n, kb, width, b, grid):
+                rows[i] += 1
+        assert (rows[p0:] == 1).all() and not rows[:p0].any()
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 7, 512, 700, 4097])
+def test_trsm_rows_once(m):
+    rows = np.zeros(m, int)
+    for b in range(trsm.blocks(m)):
+        r = trsm.block_rows(m, b)
+        assert 1 <= len(r) <= trsm.ROWS
+        rows[r.start:r.stop] += 1
+    assert (rows == 1).all()
+    assert trsm.blocks(512) == 128
+
+
+def test_trsm_columns_once_every_n():
+    for n in range(1, trsm.MAX_N + 1):
+        blocks = trsm.column_blocks(n)
+        assert [j0 for j0, _ in blocks] == list(range(0, n, trsm.NB))
+        assert sum(w for _, w in blocks) == n
+        assert all(1 <= w <= trsm.NB for _, w in blocks)
+        # every column of the panel left of a block lies in whole chunks
+        assert all(j0 % trsm.KC == 0 for j0, _ in blocks)
+
+
+@pytest.mark.parametrize("kernel,args", [
+    ("potrf", lambda n: (torch.eye(n),)),
+    ("trsm", lambda n: (torch.eye(n), torch.ones(2, n))),
+])
+def test_limits_hold(monkeypatch, kernel, args):
+    """Past MAX_N the wrapper refuses a CUDA tensor before any launch;
+    the limits stay those of the first kernels."""
+    mod = {"potrf": potrf, "trsm": trsm}[kernel]
+    assert mod.MAX_N == {"potrf": 6144, "trsm": 4096}[kernel]
+    monkeypatch.setattr(_build, "on_cuda", lambda *a: True)
+    fn = getattr(mod, kernel)
+    with pytest.raises(ValueError, match="exceeds"):
+        fn(*args(mod.MAX_N + 1))
