@@ -4,7 +4,8 @@
     python3 benchmarks/torch_lm_bounds.py [--seeds 0 1 2]
 
 Runs ``chip_smoke.py``'s flash checks (every case, each output row against
-its allowance, the dropped-KV-tile and zeroed-output controls) and its LM
+its allowance, the dropped-KV-tile and zeroed-output controls, and each
+bf16 case's mismatch share with its bf16-P control) and its LM
 phase (qwen3-14b at published widths and depth: prefill against the plain
 attention, against the decode replay, and the two faults each check must
 reject) once per seed.  A failed requirement is logged, not raised, so
@@ -55,6 +56,20 @@ def main() -> int:
             "flash_control_min": min(
                 min(r["control_dropped_tile_ratio"], r["control_zeroed_ratio"])
                 for r in run["flash"].values()),
+            "flash_mismatch_share_max": max(
+                r["mismatch_share"] for r in run["flash"].values()
+                if "mismatch_share" in r),
+            "flash_mismatch_control_min": min(
+                r["control_bf16_p_mismatch_share"]
+                for r in run["flash"].values() if "mismatch_share" in r),
+            "flash_ffma_mismatch_share_max": max(
+                r["ffma_mismatch_share"] for r in run["flash"].values()
+                if "mismatch_share" in r),
+            # [tensor-core kernel, FFMA kernel (P in f32), bf16-P control]
+            "flash_mismatch_by_case": {
+                tag: [r["mismatch_share"], r["ffma_mismatch_share"],
+                      r["control_bf16_p_mismatch_share"]]
+                for tag, r in run["flash"].items() if "mismatch_share" in r},
             "prefill_vs_plain": lm["prefill_vs_plain_max_diff"]
             / lm["prefill_max_logit"],
             "prefill_control_min": min(c["rel_diff"] for c in

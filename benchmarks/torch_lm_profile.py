@@ -33,7 +33,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
-KINDS = (("flash", ("flash_kernel",)),
+KINDS = (("flash", ("flash_kernel", "flash_wgmma_kernel")),
          ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "splitk")),
          ("copy/cast", ("copy", "Memcpy", "Memset")))
 

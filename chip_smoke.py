@@ -6,13 +6,18 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: the six kernels from ``src/repro_torch/kernels/csrc``, one
+2. build: the seven sources from ``src/repro_torch/kernels/csrc`` (the six
+   kernels; flash attention has two, tensor-core bf16 and FFMA f32), one
    ``nvcc`` per source, all at once;
 3. kernel check: each per-op kernel against its plain PyTorch version on
    the card at the main path's tile size (f32) and at bf16 (fp8 operands
    for the GEMM), with the tolerances of ``tests/test_kernels.py``, and its
    time beside the plain version's, one PyTorch library call's and its
-   bound; the blocked POTRF and TRSM also at ragged sizes, each held to its
+   bound (CUDA events around back-to-back calls, and the profiler's device
+   time a call, which leaves out the device's waits on the host); the
+   cluster split-K SYRK also at ragged M and K, each entry at its
+   own scale (the plain version without the last rank's K chunk must fail
+   that check); the blocked POTRF and TRSM also at ragged sizes, each held to its
    residual at its own scale (a dropped block update must fail that check),
    and a pivot failing inside a block; then the fused column step against its plain version: every
    storage class in f32 and f64, the epilogue bitwise, f32 at the main
@@ -32,12 +37,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    tile by tile, against the unfused port; the same plan computed in f32
    must fail that tile check;
 6. LM serving, qwen3-14b at published widths and depth (bf16 activations,
-   f32 parameters from ``--seed``, the flash flag on): the flash kernel
-   against its plain version at the prefill shape and five others, each
+   f32 parameters from ``--seed``, the flash flag on): the flash kernels
+   against their plain version at the prefill shape and nine others, each
    output row at its own scale (a zeroed output and a dropped KV tile must
-   fail that check), timed at the prefill shape beside its plain version,
-   PyTorch's SDPA and its bound; a prefill step on 4 x 2048 tokens (40
-   flash launches, logits finite, padding masked), the same step with the
+   fail that check), each bf16 case also by the share of outputs that
+   differ (P rounded to bf16 must fail that check), timed at the prefill
+   shape beside the FFMA kernel on the same bf16 inputs, the plain version,
+   PyTorch's SDPA and the bound; a prefill step on 4 x 2048 tokens (40
+   tensor-core flash launches, none on FFMA, logits finite, padding
+   masked), the same step with the
    plain attention passed in, and the decode server on a 128-token prompt,
    whose replay logits are held against a flash prefill of the same
    prompt; both logit checks must reject two faults (the flash kernel
@@ -85,7 +93,9 @@ KERNEL_META = {
               "src/repro/kernels/potrf.py:41"),
     "fused_column_step": ("src/repro_torch/kernels/csrc/fused_column.cu",
                           "src/repro/kernels/fused_column.py:173"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    # bf16 (the model's) on the tensor cores; f32 stays on FFMA
+    # (csrc/flash_attention.cu), which the kernel checks also run
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_wgmma.cu",
                         "src/repro/kernels/flash_attention.py:26"),
 }
 _OP_OF = {"mxp_gemm_update": "GEMM", "syrk_update": "SYRK", "trsm": "TRSM",
@@ -121,6 +131,24 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: the CUDA kernels (and copies) it launches,
+    summed from ``torch.profiler`` over ``reps`` calls. Unlike
+    :func:`time_ms` it leaves out the gaps where the device waits on the
+    host's launches, which a call of tens of microseconds can have."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0))
+                   for ev in prof.key_averages())
+    return total_us / 1e3 / reps
 
 
 def _spd(n, g, dev, dtype=torch.float32):
@@ -176,6 +204,17 @@ def kernel_checks(tb: int, dev, g) -> dict:
                 tag = f"{name}[{str(dt).replace('torch.', '')}]"
                 row = {"dtype": str(dt).replace("torch.", ""),
                        "max_abs_err": err, "atol": atol, "rtol": rtol}
+                if name == "syrk_update":
+                    split, chunk = syrk.split_for(tb)
+                    ratio, ctrl = syrk_ratio(got, c, a), syrk_ratio(
+                        syrk_dropped_chunk(c, a), c, a)
+                    row.update({"split": split, "chunk": chunk,
+                                "entry_ratio": ratio,
+                                "control_dropped_chunk_ratio": ctrl})
+                    require(ratio <= 1.0 and (
+                        ctrl > 1.0 or not syrk_control_resolvable(c, a)),
+                            f"{tag}: entry ratio {ratio}, dropped-chunk "
+                            f"control {ctrl} (must exceed 1)")
                 if dt == torch.float32:     # the main path's dtype: timed
                     reps = 50
                     bound_f = flops / PEAK_F32_FLOPS * 1e3
@@ -184,6 +223,8 @@ def kernel_checks(tb: int, dev, g) -> dict:
                         "ms": time_ms(lambda: kern(*args), reps),
                         "plain_ms": time_ms(lambda: plain(*args), reps),
                         "library_ms": time_ms(library, reps),
+                        "device_ms": device_ms(lambda: kern(*args)),
+                        "library_device_ms": device_ms(library),
                         "bound_ms": max(bound_f, bound_b),
                         "bound_by": ("operations" if bound_f >= bound_b
                                      else "bytes"),
@@ -203,6 +244,100 @@ def kernel_checks(tb: int, dev, g) -> dict:
                 log(f"kernel {tag}: " + json.dumps(row))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return results
+
+
+# SYRK is also held entry by entry at each entry's own scale, W = |C| +
+# |A| |A|^T: two f32 sums of K products in different orders differ by at
+# most 2 (K + 2) 2^-24 W, and a bf16 output's rounding adds 2^-8 W (half
+# an ulp each side). The bound holds for any correct order, so the card's
+# readings need no margin. The control is the plain version without the
+# K columns of the last CTA of the cluster split (all of K when split is
+# 1): a kernel that drops one rank's partial sum computes it, and its
+# diagonal moves by that chunk's share of W. It must fail wherever that
+# share exceeds 4 allowances on some diagonal entry: always in f32 here; a
+# bf16 output's rounding can hide a small chunk (M = K = 1).
+SYRK_SIZES = (1, 31, 33, 100, 257, 513)
+
+
+def _syrk_tol(dtype, k: int) -> float:
+    return (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) + \
+        2 * (k + 2) * 2.0 ** -24
+
+
+def syrk_ratio(got, c, a) -> float:
+    """max over entries of |got - plain| / (allowance x W)."""
+    from repro_torch.kernels import ref
+    want = ref.syrk_update_ref(c, a)
+    ad = a.double()
+    w = c.double().abs() + ad.abs() @ ad.abs().T
+    tol = _syrk_tol(got.dtype, a.shape[1])
+    return float(((got.double() - want.double()).abs() / (tol * w)
+                  .clamp_min(1e-300)).max())
+
+
+def _last_chunk(k: int) -> int:
+    from repro_torch.kernels import syrk
+    split, chunk = syrk.split_for(k)
+    return syrk.chunk_bounds(k, split, chunk)[-1][0]
+
+
+def syrk_dropped_chunk(c, a):
+    """The plain version without the last rank's K chunk."""
+    from repro_torch.kernels import ref
+    return ref.syrk_update_ref(c, a[:, :_last_chunk(a.shape[1])].contiguous())
+
+
+def syrk_control_resolvable(c, a) -> bool:
+    """Whether the last chunk moves some diagonal entry by more than 4
+    allowances of its W."""
+    ad = a.double()
+    moved = (ad[:, _last_chunk(a.shape[1]):] ** 2).sum(dim=1)
+    w = c.double().diagonal().abs() + (ad ** 2).sum(dim=1)
+    tol = _syrk_tol(c.dtype, a.shape[1])
+    return bool((moved / w.clamp_min(1e-300) > 4 * tol).any())
+
+
+def syrk_checks(dev, seed: int) -> dict:
+    """SYRK at ragged M and K, both types, against its plain version: the
+    old tolerance, each entry at its own scale, the dropped-chunk control.
+    Inputs from numpy, so the CPU tests can hold the same data."""
+    import numpy as np
+
+    from repro_torch.kernels import ref, syrk
+    tol = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for m in SYRK_SIZES:
+            for k in SYRK_SIZES:
+                rng = np.random.default_rng([seed, m, k])
+                x = rng.standard_normal((m, m)) / math.sqrt(m)
+                c = torch.from_numpy(x @ x.T + 2.0 * np.eye(m)).to(dev, dt)
+                a = torch.from_numpy(rng.standard_normal((m, k))).to(dev, dt)
+                got = syrk.syrk_update(c, a)
+                want = ref.syrk_update_ref(c, a)
+                torch.cuda.synchronize()
+                tag = f"syrk_update[{str(dt)[6:]},m={m},k={k}]"
+                t = tol[dt]
+                torch.testing.assert_close(
+                    got.double(), want.double(), atol=max(m, k) * t / 16,
+                    rtol=t, msg=lambda msg, tag=tag: f"{tag}: {msg}")
+                ratio = syrk_ratio(got, c, a)
+                ctrl = syrk_ratio(syrk_dropped_chunk(c, a), c, a)
+                held = syrk_control_resolvable(c, a)
+                require(ratio <= 1.0, f"{tag}: entry ratio {ratio}")
+                require(not held or ctrl > 1.0, f"{tag}: the dropped-chunk "
+                        f"control passes ({ctrl})")
+                results[tag] = {"split": syrk.split_for(k)[0],
+                                "entry_ratio": ratio,
+                                "control_dropped_chunk_ratio": ctrl,
+                                "control_held": held}
+    worst = max(r["entry_ratio"] for r in results.values())
+    least = min(r["control_dropped_chunk_ratio"] for r in results.values()
+                if r["control_held"])
+    log(f"syrk at M, K in {SYRK_SIZES}, f32 and bf16: worst entry ratio "
+        f"{worst:.3e} (bound 1), least dropped-chunk control {least:.3e} "
+        f"(must exceed 1)")
     return results
 
 
@@ -734,9 +869,12 @@ FLASH_CASES = (
     ("prefill", 4, 2048, 2048, 40, 8, 128, torch.bfloat16, True),
     ("f32,hd64", 1, 512, 512, 8, 2, 64, torch.float32, True),
     ("f32,hd128", 1, 512, 512, 40, 8, 128, torch.float32, True),
+    ("bf16,hd64", 1, 512, 512, 8, 2, 64, torch.bfloat16, True),
     ("bf16,hd192", 1, 512, 512, 96, 8, 192, torch.bfloat16, True),
     ("bf16,hd256", 1, 512, 512, 4, 1, 256, torch.bfloat16, True),
+    ("bf16,S=1000", 1, 1000, 1000, 40, 8, 128, torch.bfloat16, True),
     ("f32,full,T!=S", 2, 256, 1024, 40, 8, 128, torch.float32, False),
+    ("bf16,full,T!=S", 2, 256, 1024, 40, 8, 128, torch.bfloat16, False),
     ("bf16,long KV", 1, 128, 16384, 40, 8, 128, torch.bfloat16, False),
 )
 # tests/test_flash_attention.py's tolerances
@@ -751,27 +889,57 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 FLASH_ROW_TOL = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
 FLASH_ACC = 8
 FLASH_DROP = 64     # keys the dropped-tile control leaves out
+# A bf16 output is also held by the share of its values that differ from
+# the plain version's (both rounded to bf16 from f32): a sound kernel moves
+# a value across a rounding boundary only where its f32 sum lies within its
+# own error of one. The row check passes a kernel whose P is rounded to
+# bf16 before P V (2^-9 of each p); this check does not. The card's
+# readings over seeds 0-2 (benchmarks/torch_lm_bounds.py, NVIDIA H100 80GB
+# HBM3, 700 W): the tensor-core kernel 0.0021-0.0027, and 0.0170-0.0172 at
+# long KV (T = 16384, whose outputs are small beside the errors of their
+# sums); the FFMA kernel on the same bf16 inputs (P in f32, another order)
+# 0.0001-0.0004, and 0.0012-0.0013 at long KV; the control, the plain
+# version with P rounded to bf16, 0.381-0.424. The bound is 2.9 times the
+# worst sound reading and 7.6 times below the least control, which must
+# read above it in every bf16 case.
+FLASH_MISMATCH_BOUND = 0.05
+
+
+def _flash_pairs(s, t, causal):
+    """(qi, kj) pairs the mask keeps: rows qi see min(qi + 1, T) keys."""
+    if not causal:
+        return s * t
+    return t * (t + 1) // 2 + (s - t) * t if s >= t else s * (s + 1) // 2
 
 
 def _flash_cost(b, s, t, h, kv, hd, dt, causal):
-    """Least time of one call: each product over the (qi, kj) pairs the mask
-    keeps, Q K^T at the tensor cores' bf16 peak for bf16 inputs (f32's
-    otherwise) and P V at the f32 peak (P stays f32); bytes of q, k, v and o
-    once each."""
-    if causal:      # rows qi see min(qi + 1, T) keys
-        pairs = (t * (t + 1) // 2 + (s - t) * t if s >= t
-                 else s * (s + 1) // 2)
-    else:
-        pairs = s * t
-    per = 2.0 * b * h * pairs * hd
-    peak_qk = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
-    bound_f = (per / peak_qk + per / PEAK_F32_FLOPS) * 1e3
+    """Least time of one call over the (qi, kj) pairs the mask keeps. bf16:
+    three products on the tensor cores at the bf16 peak (Q K^T, P_hi V,
+    P_lo V); ``bound_ffma_pv_ms`` is the bound of the FFMA kernel's design
+    (Q K^T at the bf16 peak, P V in f32 FFMA). f32: two products at the f32
+    peak. Bytes: q, k, v and o once each."""
+    per = 2.0 * b * h * _flash_pairs(s, t, causal) * hd
     itemsize = torch.finfo(dt).bits // 8
     nbytes = (2 * b * s * h + 2 * b * t * kv) * hd * itemsize
     bound_b = nbytes / PEAK_HBM_BYTES * 1e3
-    return {"flops": 2 * per, "bytes": nbytes,
+    if dt == torch.bfloat16:
+        flops = 3 * per
+        bound_f = flops / PEAK_BF16_FLOPS * 1e3
+        ffma_pv = max(bound_b, (per / PEAK_BF16_FLOPS + per / PEAK_F32_FLOPS)
+                      * 1e3)
+    else:
+        flops = 2 * per
+        bound_f = flops / PEAK_F32_FLOPS * 1e3
+        ffma_pv = max(bound_f, bound_b)
+    return {"flops": flops, "bytes": nbytes,
             "bound_ms": max(bound_f, bound_b),
-            "bound_by": "operations" if bound_f >= bound_b else "bytes"}
+            "bound_by": "operations" if bound_f >= bound_b else "bytes",
+            "bound_ffma_pv_ms": ffma_pv}
+
+
+def _mismatch_share(got, want) -> float:
+    """Share of the outputs whose values differ (NaN counts as differing)."""
+    return float((got != want).float().mean())
 
 
 def _flash_row_ratio(got, want, v, tol):
@@ -787,13 +955,16 @@ def flash_checks(dev, g) -> dict:
     """The flash kernel against its plain version at every case, each row
     at its own scale, with two controls that must fail that check: a zeroed
     output, and the plain version without the last FLASH_DROP keys (a
-    kernel that drops its last KV tile).  q and k are unit normals, so the
-    scores spread by about 1 and each row is a weighted mean of v that a
-    dropped tile moves.  The prefill shape is timed beside the plain
-    version and PyTorch's SDPA."""
+    kernel that drops its last KV tile).  A bf16 case is also held by its
+    mismatch share, which the plain version with P rounded to bf16 must
+    fail.  q and k are unit normals, so the scores spread by about 1 and
+    each row is a weighted mean of v that a dropped tile moves.  The
+    prefill shape is timed beside the FFMA kernel, the plain version and
+    PyTorch's SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     results = {}
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False    # plain version in f32
@@ -802,9 +973,16 @@ def flash_checks(dev, g) -> dict:
             q, k, v = (torch.randn(*shape, generator=g, device=dev).to(dt)
                        for shape in ((b, s, h, hd), (b, t, kv, hd),
                                      (b, t, kv, hd)))
-            got = fa.flash_gqa(q, k, v, causal=causal)
-            want = fa.flash_gqa_ref(q, k, v, causal=causal)
+            blk = {"bq": s, "bk": t}     # any S and T (the kernels tile alone)
+            ops.reset_counts()
+            got = fa.flash_gqa(q, k, v, causal=causal, **blk)
+            want = fa.flash_gqa_ref(q, k, v, causal=causal, **blk)
             torch.cuda.synchronize()
+            kind = fa.variant(dt)
+            require(ops.flash_variant_counts() == {
+                **dict.fromkeys(fa.variant_launches, 0), kind: 1},
+                f"flash_attention[{tag}] variants "
+                f"{ops.flash_variant_counts()}, want one {kind}")
             err = float((got.double() - want.double()).abs().max())
             tol, row_tol = FLASH_TOL[dt], FLASH_ROW_TOL[dt]
             torch.testing.assert_close(
@@ -813,7 +991,7 @@ def flash_checks(dev, g) -> dict:
             ratio = _flash_row_ratio(got, want, v, row_tol)
             dropped = fa.flash_gqa_ref(q, k[:, :-FLASH_DROP],
                                        v[:, :-FLASH_DROP], causal=causal,
-                                       bq=FLASH_DROP, bk=FLASH_DROP)
+                                       bq=s, bk=t - FLASH_DROP)
             ctrl_drop = _flash_row_ratio(got, dropped, v, row_tol)
             ctrl_zero = _flash_row_ratio(torch.zeros_like(got), want, v,
                                          row_tol)
@@ -823,18 +1001,40 @@ def flash_checks(dev, g) -> dict:
                     f"flash_attention[{tag}] row check passes a control "
                     f"(dropped tile {ctrl_drop}, zeroed {ctrl_zero})")
             row = {"shape": [b, s, t, h, kv, hd], "dtype": str(dt)[6:],
-                   "causal": causal, "max_abs_err": err, "atol": tol,
-                   "rtol": tol, "tol_per_row": row_tol, "row_ratio": ratio,
+                   "causal": causal, "variant": kind, "max_abs_err": err,
+                   "atol": tol, "rtol": tol, "tol_per_row": row_tol,
+                   "row_ratio": ratio,
                    "err_in_f32_quanta_of_max_v":
                        err / (2.0 ** -24 * float(v.abs().max())),
                    "control_dropped_tile_ratio": ctrl_drop,
                    "control_zeroed_ratio": ctrl_zero,
                    **_flash_cost(b, s, t, h, kv, hd, dt, causal)}
+            if dt == torch.bfloat16:
+                share = _mismatch_share(got, want)
+                ctrl_p = _mismatch_share(fa.flash_gqa_ref(
+                    q, k, v, causal=causal, p_mode="bf16", **blk), want)
+                # a sound reading beside it: the FFMA kernel keeps P in f32
+                # and differs from the plain version only in its order
+                ffma_share = _mismatch_share(fa.flash_gqa(
+                    q, k, v, causal=causal, kernel="ffma", **blk), want)
+                require(share <= FLASH_MISMATCH_BOUND,
+                        f"flash_attention[{tag}] mismatch share {share} > "
+                        f"{FLASH_MISMATCH_BOUND}")
+                require(ctrl_p > FLASH_MISMATCH_BOUND,
+                        f"flash_attention[{tag}] mismatch check passes the "
+                        f"bf16-P control ({ctrl_p})")
+                row.update({"mismatch_share": share,
+                            "mismatch_bound": FLASH_MISMATCH_BOUND,
+                            "ffma_mismatch_share": ffma_share,
+                            "control_bf16_p_mismatch_share": ctrl_p})
             if tag == "prefill":
                 del got, want
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 row.update({
                     "ms": time_ms(lambda: fa.flash_gqa(q, k, v), 20),
+                    "ffma_ms": time_ms(
+                        lambda: fa.flash_gqa(q, k, v, kernel="ffma"), 5),
+                    "device_ms": device_ms(lambda: fa.flash_gqa(q, k, v)),
                     "plain_ms": time_ms(lambda: fa.flash_gqa_ref(q, k, v),
                                         3, 1),
                     "library_ms": time_ms(
@@ -842,6 +1042,9 @@ def flash_checks(dev, g) -> dict:
                             qt, kt, vt, is_causal=True, enable_gqa=True), 20),
                     "library": "F.scaled_dot_product_attention(is_causal, "
                                "enable_gqa), bf16 P"})
+                row["library_device_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True))
                 row["tflops"] = row["flops"] / row["ms"] / 1e9
             results[f"flash_attention[{tag}]"] = row
             log(f"kernel flash_attention[{tag}]: " + json.dumps(row))
@@ -879,6 +1082,7 @@ def lm_serving(dev, seed: int) -> dict:
 
     import repro_torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_gqa, flash_gqa_ref
     from repro_torch.launch.serve import decode_tokens
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -894,6 +1098,8 @@ def lm_serving(dev, seed: int) -> dict:
         "attention dropped": lambda q, k, v, **kw: torch.zeros_like(q)}
     only_flash = {**dict.fromkeys(repro_torch.launch_counts(), 0),
                   "flash_attention": n_layers}
+    # every layer on the tensor cores: bf16 at hd 128
+    only_tc = {"tensor_core": n_layers, "ffma": 0}
 
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -920,8 +1126,11 @@ def lm_serving(dev, seed: int) -> dict:
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
         launches = repro_torch.launch_counts()
+        variants = ops.flash_variant_counts()
         require(launches == only_flash,
                 f"prefill launches {launches} != {only_flash}")
+        require(variants == only_tc,
+                f"prefill flash variants {variants} != {only_tc}")
     v = cfg.vocab
     require(tuple(logits.shape) == (batch, cfg.padded_vocab),
             f"prefill logits {tuple(logits.shape)}")
@@ -1002,6 +1211,8 @@ def lm_serving(dev, seed: int) -> dict:
     short_launches = repro_torch.launch_counts()
     require(short_launches == only_flash,
             f"prefill-128 launches {short_launches} != {only_flash}")
+    require(ops.flash_variant_counts() == only_tc,
+            f"prefill-128 flash variants {ops.flash_variant_counts()}")
     replay = replay_logits[:, 0]
     diff128, scale128, same128 = _logit_diff(short, replay, v)
     log(f"lm: flash prefill of the prompt vs the decode replay at position "
@@ -1026,7 +1237,8 @@ def lm_serving(dev, seed: int) -> dict:
     return {"model": cfg.name, "layers": n_layers, "init_s": init_s,
             "param_gb": param_gb, "prefill_batch": batch, "prefill_seq": seq,
             "prefill_s": prefill_s, "prefill_tokens_per_s": tok_s,
-            "prefill_launches": launches, "plain_prefill_s": plain_s,
+            "prefill_launches": launches,
+            "prefill_flash_variants": variants, "plain_prefill_s": plain_s,
             "logit_rel_bound": PREFILL_REL_BOUND,
             "replay_logit_rel_bound": REPLAY_REL_BOUND,
             "prefill_controls": controls, "replay_controls": controls128,
@@ -1071,6 +1283,7 @@ def main() -> int:
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     checks = kernel_checks(args.tb, dev, g)     # 3. kernel check
+    checks.update(syrk_checks(dev, args.seed))
     checks.update(blocked_checks(args.tb, dev, g))
     checks.update(fused_checks(args.tb, dev, g))
     a = make_spd(args.n, dev, args.seed)        # 4. main path
@@ -1104,8 +1317,10 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
-        if "unfused_ms" in row:
-            kernels[-1]["unfused_ms"] = row["unfused_ms"]
+        for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
+                    "split", "device_ms", "library_device_ms"):
+            if key in row:
+                kernels[-1][key] = row[key]
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "chip_smoke.json").write_text(json.dumps(

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("mxp_gemm", "syrk", "trsm", "potrf", "fused_column",
-           "flash_attention")
+           "flash_attention", "flash_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

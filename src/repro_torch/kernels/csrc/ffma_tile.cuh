@@ -1,4 +1,4 @@
-// The FFMA main loop shared by the GEMM and SYRK update kernels.
+// The FFMA main loop of the GEMM update kernel and the fused column step.
 //
 // A 256-thread block owns a 64 x 64 output tile and walks K in steps of 16:
 // each step stages A[m0:m0+64, k0:k0+16] and B[n0:n0+64, k0:k0+16] in shared

@@ -16,11 +16,15 @@
 // through these strides, so no transpose is made and K/V are never
 // replicated per query head.
 //
+// It serves f32 inputs, whose products on the tensor cores would be TF32;
+// bf16 inputs go to flash_wgmma.cu on the tensor cores (the wrapper,
+// repro_torch/kernels/flash_attention.py, chooses by dtype and head dim,
+// and runs this kernel on bf16 only when asked, to time it).
+//
 // What bounds it here: operations. At the prefill shape of qwen3-14b
 // (B 4, 40 heads over 8, S = T = 2048, HD 128) the causal half is 1.7e11
 // flops against 0.2 GB of q, k, v and o. The FFMA rate (67 TFLOP/s), not
-// memory, is the limit this design can reach; the tensor cores (wgmma, with
-// P kept in f32 for P . V) are later work.
+// memory, is the limit this design can reach.
 //
 // What the design does about it: one 256-thread block per 64 query rows;
 // each thread owns 4 rows and a 4 x 4 (HD <= 128) or 4 x 2 block of the

@@ -52,9 +52,17 @@ def call_counts() -> dict:
     return dict(_CALLS)
 
 
+def flash_variant_counts() -> dict:
+    """Flash attention launches per kernel (``tensor_core``, ``ffma``)
+    since the last reset; they sum to ``launch_counts()["flash_attention"]``."""
+    return dict(_flash.variant_launches)
+
+
 def reset_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    for name in _flash.variant_launches:
+        _flash.variant_launches[name] = 0
     for name in _CALLS:
         _CALLS[name] = 0
 

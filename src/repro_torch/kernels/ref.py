@@ -124,14 +124,29 @@ def gemm_update_ref(c: torch.Tensor, a: torch.Tensor,
 NEG_INF = -1e30
 
 
+def split_bf16(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core flash kernel's split of f32 ``p`` into bf16 halves:
+    hi = bf16(p), lo = bf16(p - hi) (p - hi is exact in f32), so hi + lo
+    is p within 2^-17 of |p|."""
+    hi = p.to(torch.bfloat16)
+    lo = (p - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        p_mode: str = "f32") -> torch.Tensor:
     """softmax((q k^T) / sqrt(hd)) v in f32, in q's type.
 
     q: [BH, S, hd]; k/v: [BKV, T, hd]; query row bh reads KV row bh // g
     (g = BH / BKV).  The causal mask keeps kj <= qi from position 0 and
     writes -1e30 elsewhere; the output is (p v) / max(l, 1e-30), with the
-    flash kernel's constants."""
+    flash kernel's constants.
+
+    ``p_mode`` is how p enters p v: ``"f32"`` (the function), ``"split"``
+    (hi + lo of :func:`split_bf16`, a plain model of the tensor-core
+    kernel) or ``"bf16"`` (p rounded to bf16, a control that is not the
+    function); l sums p in f32 in every mode."""
     bh, s, hd = q.shape
     g = bh // k.shape[0]
     kf = k.float().repeat_interleave(g, dim=0)
@@ -143,5 +158,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  > torch.arange(s, device=q.device)[:, None])
         sc.masked_fill_(above, NEG_INF)
     p = sc.sub_(sc.amax(dim=-1, keepdim=True)).exp_()
-    out = torch.matmul(p, vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return out.to(q.dtype)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if p_mode == "f32":
+        pv = torch.matmul(p, vf)
+    elif p_mode == "split":
+        hi, lo = split_bf16(p)
+        pv = torch.matmul(hi.float(), vf) + torch.matmul(lo.float(), vf)
+    elif p_mode == "bf16":
+        pv = torch.matmul(p.to(torch.bfloat16).float(), vf)
+    else:
+        raise ValueError(f"flash_attention_ref: p_mode {p_mode!r}")
+    return (pv / l).to(q.dtype)

@@ -250,6 +250,61 @@ def test_cuda_trsm_rows_and_type_pairs(cuda, m, n, l_dtype, c_dtype):
     _check_blocked("trsm", got, (l, c))
 
 
+# SYRK entry by entry at each entry's own scale, W = |C| + |A||A|^T
+# (chip_smoke.py's syrk_ratio): two f32 sums of K products differ by at
+# most 2 (K + 2) 2^-24 W, and a bf16 output's rounding adds 2^-8 W.  The
+# control, the plain version without the last rank's K chunk of the
+# cluster split, must fail wherever it moves a diagonal entry by more
+# than 4 allowances (always in f32; not at M = K = 1 in bf16).
+_SYRK_SIZES = [1, 31, 33, 100, 257, 513]
+
+
+def _syrk_tol(dtype, k):
+    return (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) + \
+        2 * (k + 2) * 2.0 ** -24
+
+
+def _syrk_ratio(got, c, a):
+    want = ref.syrk_update_ref(c, a)
+    ad = a.double()
+    w = c.double().abs() + ad.abs() @ ad.abs().T
+    return float(((got.double() - want.double()).abs()
+                  / (_syrk_tol(got.dtype, a.shape[1]) * w).clamp_min(1e-300))
+                 .max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", _SYRK_SIZES)
+@pytest.mark.parametrize("m", _SYRK_SIZES)
+def test_cuda_syrk_split_k_ragged(cuda, m, k, dtype):
+    from repro_torch.kernels import syrk
+    dt, tol = _TORCH[dtype], _tol(dtype)
+    rng = np.random.default_rng([m, k])
+    x = rng.standard_normal((m, m)) / np.sqrt(m)
+    c = torch.from_numpy(x @ x.T + 2.0 * np.eye(m)).to(cuda, dt)
+    a = torch.from_numpy(rng.standard_normal((m, k))).to(cuda, dt)
+    ops.reset_counts()
+    got = ops.syrk_update(c, a)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["syrk_update"] == 1
+    assert got.dtype == dt
+    torch.testing.assert_close(got.double(), ref.syrk_update_ref(c, a).double(),
+                               atol=max(m, k) * tol / 16, rtol=tol)
+    assert torch.equal(got, got.T)
+    assert _syrk_ratio(got, c, a) <= 1.0
+    split, chunk = syrk.split_for(k)
+    lo = syrk.chunk_bounds(k, split, chunk)[-1][0]
+    control = ref.syrk_update_ref(c, a[:, :lo].contiguous())
+    ad = a.double()
+    moved = (ad[:, lo:] ** 2).sum(dim=1)
+    w = c.double().diagonal().abs() + (ad ** 2).sum(dim=1)
+    if bool((moved / w > 4 * _syrk_tol(dt, k)).any()):
+        assert _syrk_ratio(control, c, a) > 1.0
+    else:
+        assert dt == torch.bfloat16 and m == k == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_potrf_nan_from_a_pivot_inside_a_block(cuda, dtype):
@@ -438,12 +493,52 @@ _FLASH_ROW_TOL = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
 _FLASH_ACC = 8
 
 
+# chip_smoke.py's FLASH_MISMATCH_BOUND: the share of bf16 outputs that may
+# differ from the plain version's (the card reads at most 0.0172, at long
+# KV); the plain version with P rounded to bf16 must read above it (0.381
+# or more)
+_MISMATCH_BOUND = 0.05
+
+
 def _flash_row_ratio(got, want, v, tol):
     """The worst row's max|got - want| over its allowance."""
     err = (got.double() - want.double()).abs().amax(dim=-1)
     allow = (tol * want.double().abs().amax(dim=-1)
              + _FLASH_ACC * 2.0 ** -24 * float(v.abs().max()))
     return float((err / allow).max())
+
+
+def _check_flash(fa, q, k, v, causal, dtype):
+    """One launch of the kernel that the dtype and head dim pick, against
+    the plain version: the tolerance, the row check and its two controls,
+    and for bf16 the mismatch share and its bf16-P control."""
+    hd = q.shape[-1]
+    s, t = q.shape[1], k.shape[1]
+    blk = {"bq": s, "bk": t}        # any S and T (the kernels tile alone)
+    ops.reset_counts()
+    got = fa.flash_gqa(q, k, v, causal=causal, **blk)
+    want = fa.flash_gqa_ref(q, k, v, causal=causal, **blk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    kind = "tensor_core" if dtype == "bfloat16" else "ffma"
+    assert ops.flash_variant_counts() == {
+        "tensor_core": int(kind == "tensor_core"), "ffma": int(kind == "ffma")}
+    assert got.dtype == _TORCH[dtype] and got.shape == q.shape
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.double(), want.double(), atol=tol, rtol=tol)
+    row_tol = _FLASH_ROW_TOL[dtype]
+    assert _flash_row_ratio(got, want, v, row_tol) <= 1.0
+    dropped = fa.flash_gqa_ref(q, k[:, :-64], v[:, :-64], causal=causal,
+                               bq=s, bk=t - 64)
+    assert _flash_row_ratio(got, dropped, v, row_tol) > 1.0
+    assert _flash_row_ratio(torch.zeros_like(got), want, v, row_tol) > 1.0
+    if dtype == "bfloat16":
+        share = float((got != want).float().mean())
+        ctrl = float((fa.flash_gqa_ref(q, k, v, causal=causal, p_mode="bf16",
+                                       **blk) != want).float().mean())
+        assert share <= _MISMATCH_BOUND, (hd, share)
+        assert ctrl > _MISMATCH_BOUND, (hd, ctrl)
+    return got
 
 
 @pytest.mark.cuda
@@ -453,9 +548,12 @@ def _flash_row_ratio(got, want, v, tol):
 @pytest.mark.parametrize("hd", [64, 128, 192, 256])
 def test_cuda_flash_matches_plain(cuda, hd, causal, dtype, group):
     """The kernel against flash_gqa_ref in model layout: causal at S = T =
-    256, full at S = 100, T = 200 (ragged query and KV tiles).  Each row is
-    held at its own scale, and that check must reject the plain version
-    without the last 64 keys (a dropped KV tile) and a zeroed output."""
+    256, full at S = 100, T = 200 (ragged query and KV tiles).  bf16 takes
+    the tensor-core kernel, f32 the FFMA one (the variant counts say
+    which).  Each row is held at its own scale, and that check must reject
+    the plain version without the last 64 keys (a dropped KV tile) and a
+    zeroed output; a bf16 output is also held by its mismatch share, which
+    the plain version with P rounded to bf16 must fail."""
     from repro_torch.kernels import flash_attention as fa
     dt = _TORCH[dtype]
     b, kv = 2, 2
@@ -467,26 +565,64 @@ def test_cuda_flash_matches_plain(cuda, hd, causal, dtype, group):
         return torch.from_numpy(x).to(cuda, dt)
 
     q, k, v = rand(b, s, kv * group, hd), rand(b, t, kv, hd), rand(b, t, kv, hd)
-    ops.reset_counts()
-    got = fa.flash_gqa(q, k, v, causal=causal)
-    want = fa.flash_gqa_ref(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == 1
-    assert got.dtype == dt and got.shape == q.shape
-    tol = _FLASH_TOL[dtype]
-    torch.testing.assert_close(got.double(), want.double(), atol=tol, rtol=tol)
-    row_tol = _FLASH_ROW_TOL[dtype]
-    assert _flash_row_ratio(got, want, v, row_tol) <= 1.0
-    dropped = fa.flash_gqa_ref(q, k[:, :-64], v[:, :-64], causal=causal,
-                               bq=s, bk=t - 64)
-    assert _flash_row_ratio(got, dropped, v, row_tol) > 1.0
-    assert _flash_row_ratio(torch.zeros_like(got), want, v, row_tol) > 1.0
+    got = _check_flash(fa, q, k, v, causal, dtype)
     # the [BH, S, hd] layout of flash_attention gives the same values
     flat = fa.flash_attention(q.transpose(1, 2).reshape(-1, s, hd).contiguous(),
                               k.transpose(1, 2).reshape(-1, t, hd).contiguous(),
                               v.transpose(1, 2).reshape(-1, t, hd).contiguous(),
                               causal=causal)
     assert torch.equal(flat.reshape(b, -1, s, hd).transpose(1, 2), got)
+
+
+_TC_SHAPES = {             # (B, S, T, causal)
+    "S=200 causal": (2, 200, 200, True),     # S not a multiple of 128
+    "T!=S full": (1, 256, 1000, False),
+    "long KV": (1, 128, 16384, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 5, 8])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+@pytest.mark.parametrize("shape", list(_TC_SHAPES))
+def test_cuda_flash_tensor_cores(cuda, shape, hd, group):
+    """The tensor-core kernel at every head dim over ragged query rows, a
+    cross-length full mask and a long KV stream (256 tiles through the
+    ring), with 1, 5 and 8 query heads a KV head."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, t, causal = _TC_SHAPES[shape]
+    kv = 2
+    rng = np.random.default_rng([hd, group, s, t])
+
+    def rand(*shp):
+        x = rng.standard_normal(shp).astype(np.float32)
+        return torch.from_numpy(x).to(cuda, torch.bfloat16)
+
+    q, k, v = rand(b, s, kv * group, hd), rand(b, t, kv, hd), rand(b, t, kv, hd)
+    _check_flash(fa, q, k, v, causal, "bfloat16")
+
+
+@pytest.mark.cuda
+def test_cuda_flash_ffma_kernel_on_bf16(cuda):
+    """``kernel="ffma"`` runs the FFMA kernel on bf16 inputs (chip_smoke.py
+    times it beside the tensor-core kernel): it counts as ffma and agrees
+    with the tensor-core output within one bf16 ulp of each value plus the
+    split's 2^-17 of each p, which moves a weighted mean of v by up to
+    2^-17 max|v| (2^-15 max|v| allowed: both kernels' f32 sums too)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shp).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+        for shp in ((1, 256, 8, 128), (1, 256, 2, 128), (1, 256, 2, 128)))
+    ops.reset_counts()
+    ffma = fa.flash_gqa(q, k, v, kernel="ffma")
+    tc = fa.flash_gqa(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.flash_variant_counts() == {"tensor_core": 1, "ffma": 1}
+    assert ops.launch_counts()["flash_attention"] == 2
+    torch.testing.assert_close(ffma.float(), tc.float(),
+                               atol=2.0 ** -15 * float(v.abs().max()),
+                               rtol=2.0 ** -7)
 
 
 @pytest.mark.cuda
@@ -529,6 +665,8 @@ def test_cuda_prefill_step_launches_flash_per_layer(cuda):
     got = make_prefill_step(cfg)(params, {"tokens": tokens})
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    assert ops.flash_variant_counts() == {"tensor_core": cfg.num_layers,
+                                          "ffma": 0}
     want = make_prefill_step(cfg, flash=flash_gqa_ref)(params,
                                                        {"tokens": tokens})
     assert ops.launch_counts()["flash_attention"] == cfg.num_layers

@@ -1,9 +1,11 @@
-"""Launch geometry of the blocked POTRF and TRSM kernels, on the CPU.
+"""Launch geometry of the blocked POTRF and TRSM kernels and of the
+cluster split-K SYRK, on the CPU.
 
-The wrappers ``repro_torch.kernels.potrf`` and ``repro_torch.kernels.trsm``
-compute each launch's geometry as plain functions (rows a block, blocks,
-shared memory a block, the cooperative grid) and the CUDA sources refuse
-any other, so these checks hold what the card runs: the shared memory
+The wrappers ``repro_torch.kernels.potrf``, ``repro_torch.kernels.trsm``
+and ``repro_torch.kernels.syrk`` compute each launch's geometry as plain
+functions (rows a block, blocks, shared memory a block, the cooperative
+grid, the split of K over a cluster) and the CUDA sources refuse any
+other, so these checks hold what the card runs: the shared memory
 stays within a block's 232,448 bytes (hopper-kernels guide, section 1) at
 every size the wrappers accept, and each row, column and tile of the work
 is covered exactly once.
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, potrf, trsm
+from repro_torch.kernels import _build, potrf, syrk, trsm
 
 SMEM_LIMIT = 232_448        # bytes of shared memory a block can have (H100)
 RAGGED = [1, 31, 33, 63, 64, 65, 100, 257, 511, 512, 513, 1000]
@@ -137,3 +139,62 @@ def test_limits_hold(monkeypatch, kernel, args):
     fn = getattr(mod, kernel)
     with pytest.raises(ValueError, match="exceeds"):
         fn(*args(mod.MAX_N + 1))
+
+
+# --------------------------------------------------------------------------
+# SYRK: lower blocks, K chunks of a cluster, rows each rank writes
+# --------------------------------------------------------------------------
+
+SYRK_SIZES = [1, 31, 33, 63, 64, 65, 100, 257, 511, 512, 513, 1000, 4096]
+
+
+@pytest.mark.parametrize("m", SYRK_SIZES)
+def test_syrk_every_lower_block_once(m):
+    nb = -(-m // syrk.TILE)
+    count = np.zeros((nb, nb), int)
+    for t in range(syrk.blocks(m)):
+        bi, bj = syrk.block_of(t)
+        assert 0 <= bj <= bi < nb
+        count[bi, bj] += 1
+    assert (count == np.tril(np.ones((nb, nb), int))).all()
+    # every entry of the output: a lower block's own, or its mirror
+    cover = np.zeros((nb * syrk.TILE,) * 2, int)
+    for t in range(syrk.blocks(m)):
+        bi, bj = syrk.block_of(t)
+        r, c = bi * syrk.TILE, bj * syrk.TILE
+        cover[r:r + syrk.TILE, c:c + syrk.TILE] += 1
+        if bi > bj:
+            cover[c:c + syrk.TILE, r:r + syrk.TILE] += 1
+    assert (cover[:m, :m] == 1).all()
+
+
+@pytest.mark.parametrize("k", SYRK_SIZES + [128, 129, 384, 385])
+def test_syrk_every_k_chunk_once(k):
+    split, chunk = syrk.split_for(k)
+    assert 1 <= split <= syrk.MAX_SPLIT and chunk % syrk.KS == 0
+    cols = np.zeros(k, int)
+    for lo, hi in syrk.chunk_bounds(k, split, chunk):
+        assert lo < hi and lo % syrk.KS == 0     # no rank is idle
+        cols[lo:hi] += 1
+    assert (cols == 1).all()
+    # the conditions csrc/syrk.cu checks before it launches
+    assert split * chunk >= k > (split - 1) * chunk
+
+
+def test_syrk_split_at_the_main_path_tile():
+    """tb = 512: 36 lower blocks of four CTAs each, 144 CTAs, all resident
+    on the 132 SMs at two a SM; small K keeps one CTA a block."""
+    assert syrk.blocks(512) == 36
+    assert syrk.split_for(512) == (4, 128)
+    assert syrk.blocks(512) * syrk.split_for(512)[0] == 144
+    assert [syrk.split_for(k)[0] for k in (1, 31, 33, 100, 128)] == [1] * 5
+
+
+@pytest.mark.parametrize("split", range(1, 9))
+def test_syrk_share_rows_partition_the_block(split):
+    rows = np.zeros(syrk.TILE, int)
+    for rank in range(split):
+        r = syrk.share_rows(rank, split)
+        assert len(r) >= syrk.TILE // split
+        rows[r.start:r.stop] += 1
+    assert (rows == 1).all()
