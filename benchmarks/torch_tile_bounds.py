@@ -6,8 +6,9 @@ and TRSM kernels, over seeds.
 
 Runs ``chip_smoke.py``'s blocked checks (both kernels at its ragged sizes
 and at ``--tb``, f32 and bf16: each residual at its own scale in units of
-the output type's roundoff, and the dropped-block controls that must fail)
-once per seed.  A failed requirement is logged, not raised, so every seed's
+the output type's roundoff, POTRF's per 64-column block, and the
+dropped-block controls that must fail) and POTRF at the largest tile the
+wrapper takes (n = 6144, f32, with its control) once per seed.  A failed requirement is logged, not raised, so every seed's
 reading is kept.  Needs a CUDA device; writes
 ``chiprun_out/torch_tile_bounds.json``.
 """
@@ -21,6 +22,20 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def largest_potrf(cs, dev, g) -> dict:
+    """POTRF at the largest tile the wrapper takes (f32): its residual and
+    its dropped-update control, which the per-block bound must separate."""
+    from repro_torch.kernels import potrf
+    n = potrf.MAX_N
+    a = cs._spd(n, g, dev)
+    got = potrf.potrf(a)
+    torch.cuda.synchronize()
+    row = {"residual_units": cs.potrf_backward(got, a),
+           "control_units": cs.potrf_backward(cs.potrf_dropped_update(a), a)}
+    cs.log(f"blocked potrf[float32,n={n}]: " + json.dumps(row))
+    return {f"potrf[float32,n={n}]": row}
 
 
 def main() -> int:
@@ -42,6 +57,7 @@ def main() -> int:
     for seed in args.seeds:
         g = torch.Generator(device=dev).manual_seed(seed)
         run = cs.blocked_checks(args.tb, dev, g)
+        run.update(largest_potrf(cs, dev, g))
         out[f"seed {seed}"] = run
         for tag, row in run.items():
             if "residual_units" not in row:

@@ -15,15 +15,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    time beside the plain version's, one PyTorch library call's and its
    bound (CUDA events around back-to-back calls, and the profiler's device
    time a call, which leaves out the device's waits on the host); the
-   cluster split-K SYRK also at ragged M and K, each entry at its
-   own scale (the plain version without the last rank's K chunk must fail
-   that check); the blocked POTRF and TRSM also at ragged sizes, each held to its
-   residual at its own scale (a dropped block update must fail that check),
-   and a pivot failing inside a block; then the fused column step against its plain version: every
-   storage class in f32 and f64, the epilogue bitwise, f32 at the main
-   path's mid-factorization shape (R = K = 32) and f64 at R = K = 8, timed
-   beside its plain version, its bound and the four per-op kernels doing
-   the same column step;
+   cluster split-K GEMM at every geometry tried, and at ragged M, N and K
+   with every operand and output type, and the cluster split-K SYRK at
+   ragged M and K, each entry at its own scale (the plain version without
+   the last rank's K chunk must fail that check); the blocked POTRF and
+   TRSM also at ragged sizes, each held to its residual at its own scale
+   (POTRF's per 64-column block; a dropped block update must fail that
+   check), and a pivot failing inside a block; then the fused column step
+   against its plain version: every storage class in f32 and f64, the
+   epilogue bitwise, its factor and solve phases alone (device time; a
+   dropped block update must fail each), a pivot failing inside a block of
+   the diagonal tile, f32 at the main path's mid-factorization shape (R = K
+   = 32) and f64 at R = K = 8, timed beside its plain version, its bound and
+   the four per-op kernels doing the same column step, with the grid and
+   the blocks a SM;
 4. main path: a seeded SPD matrix built on the card, planned with an
    ``eps_target`` precision plan and factored through ``plan(...).compile()``
    with the hand-written kernels (``use_pallas=True``) in f32; then solve,
@@ -204,6 +209,8 @@ def kernel_checks(tb: int, dev, g) -> dict:
                 tag = f"{name}[{str(dt).replace('torch.', '')}]"
                 row = {"dtype": str(dt).replace("torch.", ""),
                        "max_abs_err": err, "atol": atol, "rtol": rtol}
+                if name == "mxp_gemm_update":
+                    row["geometry"] = mxp_gemm.geometry(tb, tb, tb)
                 if name == "syrk_update":
                     split, chunk = syrk.split_for(tb)
                     ratio, ctrl = syrk_ratio(got, c, a), syrk_ratio(
@@ -229,6 +236,14 @@ def kernel_checks(tb: int, dev, g) -> dict:
                         "bound_by": ("operations" if bound_f >= bound_b
                                      else "bytes"),
                         "flops": flops, "bytes": nbytes})
+                    if name == "mxp_gemm_update":
+                        # the geometries tried, by device time (the wrapper
+                        # launches mxp_gemm.MICRO at split_for's split)
+                        row["variants_device_ms"] = {
+                            f"{tm}x{tn},split={sp}": device_ms(
+                                lambda tm=tm, tn=tn, sp=sp:
+                                kern(*args, micro=(tm, tn), split=sp))
+                            for (tm, tn), sp in GEMM_VARIANTS}
                     if name == "potrf":
                         # cholesky checks its info on the host after each
                         # call (a sync); cholesky_ex does not. The faster
@@ -244,6 +259,117 @@ def kernel_checks(tb: int, dev, g) -> dict:
                 log(f"kernel {tag}: " + json.dumps(row))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return results
+
+
+# The GEMM's launch geometries timed beside the wrapper's: (micro-tile,
+# split) at the main path's tile (mxp_gemm.MICRO_TILES; split 8 at 8 x 4 is
+# the wrapper's choice at 512^3).
+GEMM_VARIANTS = (((8, 4), 2), ((8, 4), 4), ((8, 4), 8), ((8, 8), 4),
+                 ((8, 8), 8))
+# The GEMM is held entry by entry at each entry's own scale W = |C| + |A|
+# |B|^T, over ragged M, N, K (SYRK_SIZES) with A and B in f32, bf16 and fp8
+# (exact in f32, as are their products) and C in f32 and bf16. Two f32
+# sums of K products in different orders differ by at most 2 (K + 2) 2^-24
+# W; a bf16 output is then rounded by the kernel and by the plain version,
+# each by at most half an ulp, 2^-8 of the value, so they may differ by a
+# whole ulp, 2^-7 W, where the two sums straddle a rounding boundary
+# (seen at K = 1, where C is most of W). The control is the plain version
+# without the last rank's K chunk of the cluster split; it must fail
+# wherever that chunk moves some entry by more than 4 allowances.
+GEMM_AB = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+
+
+def _gemm_tol(dtype, k: int) -> float:
+    return (2.0 ** -7 if dtype == torch.bfloat16 else 0.0) + \
+        2 * (k + 2) * 2.0 ** -24
+
+
+def gemm_ratio(got, c, a, b) -> float:
+    """max over entries of |got - plain| / (allowance x W)."""
+    from repro_torch.kernels import ref
+    want = ref.gemm_update_ref(c, a, b)
+    w = c.double().abs() + a.double().abs() @ b.double().abs().T
+    tol = _gemm_tol(got.dtype, a.shape[1])
+    return float(((got.double() - want.double()).abs() / (tol * w)
+                  .clamp_min(1e-300)).max())
+
+
+def _gemm_last_chunk(m: int, n: int, k: int) -> int:
+    from repro_torch.kernels import mxp_gemm
+    split, chunk = mxp_gemm.split_for(m, n, k)
+    return mxp_gemm.chunk_bounds(k, split, chunk)[-1][0]
+
+
+def gemm_dropped_chunk(c, a, b):
+    """The plain version without the last rank's K chunk."""
+    from repro_torch.kernels import ref
+    lo = _gemm_last_chunk(a.shape[0], b.shape[0], a.shape[1])
+    return ref.gemm_update_ref(c, a[:, :lo].contiguous(),
+                               b[:, :lo].contiguous())
+
+
+def gemm_control_resolvable(c, a, b) -> bool:
+    """Whether the last chunk moves some entry by more than 4 allowances of
+    its W."""
+    lo = _gemm_last_chunk(a.shape[0], b.shape[0], a.shape[1])
+    ad, bd = a.double(), b.double()
+    moved = (ad[:, lo:] @ bd[:, lo:].T).abs()
+    w = c.double().abs() + ad.abs() @ bd.abs().T
+    tol = _gemm_tol(c.dtype, a.shape[1])
+    return bool((moved / w.clamp_min(1e-300) > 4 * tol).any())
+
+
+def gemm_checks(dev, seed: int) -> dict:
+    """The GEMM at ragged M, N and K, every operand and output type,
+    against its plain version: the old tolerance, each entry at its own
+    scale, the dropped-chunk control.  Inputs from numpy."""
+    import numpy as np
+
+    from repro_torch.kernels import mxp_gemm, ref
+    tol = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
+    results = {}
+    for ab in GEMM_AB:
+        for cdt in (torch.float32, torch.bfloat16):
+            for m in SYRK_SIZES:
+                for n in SYRK_SIZES:
+                    for k in SYRK_SIZES:
+                        rng = np.random.default_rng([seed, m, n, k])
+                        c = torch.from_numpy(rng.standard_normal((m, n))).to(
+                            dev, cdt)
+                        a = torch.from_numpy(rng.standard_normal((m, k))).to(
+                            dev, ab)
+                        b = torch.from_numpy(rng.standard_normal((n, k))).to(
+                            dev, ab)
+                        got = mxp_gemm.mxp_gemm_update(c, a, b)
+                        want = ref.gemm_update_ref(c, a, b)
+                        torch.cuda.synchronize()
+                        tag = (f"mxp_gemm_update[{str(ab)[6:]},{str(cdt)[6:]},"
+                               f"m={m},n={n},k={k}]")
+                        t = tol[cdt]
+                        torch.testing.assert_close(
+                            got.double(), want.double(),
+                            atol=max(m, n, k) * t / 16, rtol=t,
+                            msg=lambda msg, tag=tag: f"{tag}: {msg}")
+                        ratio = gemm_ratio(got, c, a, b)
+                        ctrl = gemm_ratio(gemm_dropped_chunk(c, a, b), c, a, b)
+                        held = gemm_control_resolvable(c, a, b)
+                        require(ratio <= 1.0, f"{tag}: entry ratio {ratio}")
+                        require(not held or ctrl > 1.0, f"{tag}: the dropped-"
+                                f"chunk control passes ({ctrl})")
+                        results[tag] = {
+                            "split": mxp_gemm.split_for(m, n, k)[0],
+                            "entry_ratio": ratio,
+                            "control_dropped_chunk_ratio": ctrl,
+                            "control_held": held}
+    worst = max(r["entry_ratio"] for r in results.values())
+    least = min(r["control_dropped_chunk_ratio"] for r in results.values()
+                if r["control_held"])
+    unheld = sum(not r["control_held"] for r in results.values())
+    log(f"gemm at M, N, K in {SYRK_SIZES}, A/B in f32, bf16, fp8 and C in "
+        f"f32, bf16 ({len(results)} cases): worst entry ratio {worst:.3e} "
+        f"(bound 1), least dropped-chunk control {least:.3e} (must exceed "
+        f"1), {unheld} cases whose chunk the output's rounding hides")
     return results
 
 
@@ -343,20 +469,24 @@ def syrk_checks(dev, seed: int) -> dict:
 
 # The blocked POTRF and TRSM are also held to their residuals, each at its
 # own scale, in units of the output type's roundoff (EPS_OUT): TRSM's max
-# over rows of |X L^T - C|_row / (max|X_row| max|L| n), POTRF's max|L L^T -
-# sym(A)| / (max|A| n). A backward-stable factor or solve reaches at most
-# about (n + 1) units there. The card's readings over seeds 0-2
-# (benchmarks/torch_tile_bounds.py, NVIDIA H100 80GB HBM3, 700 W) are at
-# most 1.48 units (POTRF at n = 1, where sqrt, the division and the square
-# each round once; 0.41 for TRSM at n = 1; at most 0.17 past n = 1), and the
-# bound is a little over three times that. For f32 outputs past one 64-wide
-# block, two controls must fail the same check: the plain solve against an L
-# whose block (J, J - 1) is zeroed (1,438 units or more), and the blocked
-# factor with one trailing update left out (50 or more, at n = 1000). A bf16
-# output's own rounding is larger than what one dropped block moves, so the
-# controls are f32's.
+# over rows of |X L^T - C|_row / (max|X_row| max|L| n); POTRF's per 64-column
+# block J, max over the block's columns of |L L^T - sym(A)| / (max|A|
+# min(n, (J + 1) 64)): an entry of column j sums j + 1 products, so the
+# bound does not grow with n (scaled by n, one dropped 64 x 64 update read
+# 1.37 units at n = 6144, inside the bound). A backward-stable factor or
+# solve reaches at most about (n + 1) units there (POTRF: j + 1). The card's
+# readings over seeds 0-2 (benchmarks/torch_tile_bounds.py, NVIDIA H100
+# 80GB HBM3, 700 W) are at most 1.48 units (POTRF at n = 1, where sqrt, the
+# division and the square each round once; 0.41 for TRSM at n = 1; at most
+# 0.17 past n = 1 with POTRF's residual scaled by n), and the bound is a
+# little over three times that. For f32 outputs past one 64-wide block, two
+# controls must fail the same check: the plain solve against an L whose
+# block (J, J - 1) is zeroed (1,438 units or more), and the blocked factor
+# with one trailing update left out. A bf16 output's own rounding is larger
+# than what one dropped block moves, so the controls are f32's.
 BACKWARD_C = 5
-EPS_OUT = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
+EPS_OUT = {torch.float64: 2.0 ** -53, torch.float32: 2.0 ** -24,
+           torch.bfloat16: 2.0 ** -8}
 BLOCK = 64          # the kernels' block edge (repro_torch.kernels.potrf.NB)
 RAGGED = (1, 31, 33, 100, 257, 513, 1000)
 NAN_PIVOT = 100     # the failing pivot of the NaN check, inside a block
@@ -369,10 +499,15 @@ def trsm_backward(x, l, c) -> float:
     return float((res / scale).max()) / EPS_OUT[x.dtype]
 
 
-def potrf_backward(lf, a) -> float:
+def potrf_backward(lf, a, nb=BLOCK) -> float:
+    """max over 64-column blocks J of max|(L L^T - sym(A))[:, J]| / (max|A|
+    min(n, (J + 1) nb)), in units of L's roundoff."""
     ld, ad = lf.double(), a.double()
-    res = (ld @ ld.T - 0.5 * (ad + ad.T)).abs().max()
-    return float(res / (ad.abs().max() * ad.shape[0])) / EPS_OUT[lf.dtype]
+    n = ad.shape[0]
+    res = (ld @ ld.T - 0.5 * (ad + ad.T)).abs().amax(dim=0)
+    terms = (torch.arange(n, device=ad.device) // nb + 1) * nb
+    scale = ad.abs().max() * terms.clamp(max=n)
+    return float((res / scale).max()) / EPS_OUT[lf.dtype]
 
 
 def potrf_dropped_update(a, nb=BLOCK):
@@ -522,6 +657,32 @@ def _fused_cost(r_tiles, k_hist, tb, with_diag, itemsize, peak):
             "bound_by": "operations" if bound_f >= bound_b else "bytes"}
 
 
+def fused_nan_pivot(n: int, dt, dev, g) -> dict:
+    """The fused step (R = 2, K = 0, no rounding) on a diagonal tile whose
+    leading minor first fails at NAN_PIVOT, inside the second 64-wide
+    block, and a second row solved against that factor."""
+    from repro_torch.kernels import fused_column as fc
+    j = NAN_PIVOT
+    spd = _spd(n, g, dev, torch.float64)
+    spd[j, j] = -5.0
+    c = torch.stack([spd, torch.randn(n, n, generator=g, device=dev,
+                                      dtype=torch.float64)]).to(dt)
+    got = fc.fused_column_step(
+        c, c.new_empty((2, 0, n, n)), c.new_empty((0, n, n)), c[0], [-1, -1],
+        ladder=LADDER, with_diag=True).double()
+    cd = c.double()
+    lead = torch.linalg.cholesky(cd[0, :j, :j])
+    below = torch.linalg.solve_triangular(lead.T, cd[0, j:, :j], upper=True,
+                                          left=False)
+    lower = torch.tril(torch.ones(n - j, n - j, dtype=torch.bool, device=dev))
+    return {"pivot": j, "tb": n, "dtype": str(dt)[6:],
+            "leading_err": float((got[0, :, :j] - torch.cat([lead, below]))
+                                 .abs().max()),
+            "lower_nan": bool(torch.isnan(got[0, j:, j:][lower]).all()),
+            "row_left_finite": bool(torch.isfinite(got[1, :, :j]).all()),
+            "row_right_nan": bool(torch.isnan(got[1, :, j:]).all())}
+
+
 def fused_checks(tb: int, dev, g) -> dict:
     """The fused column step against its plain version: every class in f32
     and f64, the epilogue bitwise, and the main path's shapes, timed."""
@@ -580,17 +741,72 @@ def fused_checks(tb: int, dev, g) -> dict:
                 f"equal to the class round for none + {len(LADDER)} classes")
 
         # two phases alone, at the main path's tile: the in-launch factor
-        # (R = 1, K = 0) and one tile's row solves (R = 1, K = 0, l_kk)
+        # (R = 1, K = 0) and one tile's row solves (R = 1, K = 0, l_kk),
+        # each with a control that leaves one block update out and must
+        # fail the row check; the factor is also held to POTRF's residual
+        # per 64-column block (f32: f64 factors are held at 1e-12 a row)
         for dt in (torch.float32, torch.float64):
             for with_diag in (True, False):
                 args = _column(1, 0, tb, with_diag, dt, dev, g)
                 kw = dict(ladder=LADDER, with_diag=with_diag)
-                ms = time_ms(lambda: fc.fused_column_step(*args, [-1], **kw),
-                             5, 1)
-                tag = (f"fused_column_step[{str(dt)[6:]},"
-                       f"{'factor' if with_diag else 'solve'} phase]")
-                results[tag] = {"ms": ms}
-                log(f"kernel {tag}: {ms:.4f} ms")
+                got = fc.fused_column_step(*args, [-1], **kw)
+                want = fc.fused_column_step_ref(*args, [-1], **kw)
+                torch.cuda.synchronize()
+                tol = _fused_tol("f64" if dt == torch.float64 else "f32",
+                                 tb, dt)
+                c0 = args[0][0]
+                if with_diag:
+                    ctrl = potrf_dropped_update(c0)[None]
+                else:
+                    ctrl = trsm_dropped_block(args[3], c0)[None]
+                ratio = _row_ratio(got, want, tol)
+                ctrl_ratio = _row_ratio(ctrl, want, tol)
+                phase = "factor" if with_diag else "solve"
+                tag = f"fused_column_step[{str(dt)[6:]},{phase} phase]"
+                row = {"row_ratio": ratio, "tol_per_row": tol,
+                       "control_dropped_block_row_ratio": ctrl_ratio,
+                       "ms": time_ms(lambda: fc.fused_column_step(
+                           *args, [-1], **kw), 5, 1),
+                       "device_ms": device_ms(lambda: fc.fused_column_step(
+                           *args, [-1], **kw), 5)}
+                require(ratio <= 1.0, f"{tag}: row error ratio {ratio}")
+                require(ctrl_ratio > 1.0, f"{tag}: the dropped-block control "
+                        f"passes the row check ({ctrl_ratio})")
+                if with_diag and dt == torch.float32:
+                    row["residual_units"] = potrf_backward(got[0], c0)
+                    row["control_residual_units"] = potrf_backward(
+                        ctrl[0], c0)
+                    require(row["residual_units"] <= BACKWARD_C,
+                            f"{tag}: residual {row['residual_units']} units")
+                    require(not row["control_residual_units"] <= BACKWARD_C,
+                            f"{tag}: the dropped-update control passes the "
+                            f"residual check")
+                results[tag] = row
+                log(f"kernel {tag}: " + json.dumps(row))
+
+        # a pivot failing inside a block of the diagonal tile: row 0 is the
+        # leading factor left of it and NaN from it on (lower entries), and
+        # a later row's solve is finite left of it and NaN from it on
+        for dt in (torch.float32, torch.float64):
+            for n in sorted({tb, fc.MAX_TB}):
+                res = fused_nan_pivot(n, dt, dev, g)
+                # left of the pivot: POTRF's f32 tolerance, f64's 1e-12
+                tol = 1e-12 if dt == torch.float64 else 2e-4
+                require(res["leading_err"] <= tol and res["lower_nan"]
+                        and res["row_left_finite"] and res["row_right_nan"],
+                        f"fused NaN pivot {dt} tb={n}: {res}")
+                results[f"fused_column_step[{str(dt)[6:]},tb={n},nan pivot]"] \
+                    = res
+        log("kernel fused_column_step, pivot failing inside a block at tb "
+            f"{sorted({tb, fc.MAX_TB})}, f32 and f64: NaN from its column on, "
+            "as the plain column loop gives")
+
+        # the cooperative grid: blocks a SM at the largest phase's shared
+        # memory, at the main path's tile and the largest the kernel takes
+        grids = [fc.grid(n, dt) for dt in (torch.float32, torch.float64)
+                 for n in sorted({tb, fc.MAX_TB})]
+        results["fused_column_step[grid]"] = {"grids": grids}
+        log("kernel fused_column_step grid: " + json.dumps(grids))
 
         # the main path's shapes: f32 mid-factorization, f64 smaller
         for dt, r_tiles, k_hist, peak in ((torch.float32, 32, 32,
@@ -617,6 +833,9 @@ def fused_checks(tb: int, dev, g) -> dict:
                 if with_diag:       # timed: the diagonal's step
                     row["ms"] = time_ms(
                         lambda: fc.fused_column_step(*args, ids, **kw), 3, 1)
+                    row["device_ms"] = device_ms(
+                        lambda: fc.fused_column_step(*args, ids, **kw), 3)
+                    row["grid"] = fc.grid(tb, dt)
                     row["plain_ms"] = time_ms(
                         lambda: fc.fused_column_step_ref(*args, ids, **kw), 3,
                         1)
@@ -1283,6 +1502,7 @@ def main() -> int:
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     checks = kernel_checks(args.tb, dev, g)     # 3. kernel check
+    checks.update(gemm_checks(dev, args.seed))
     checks.update(syrk_checks(dev, args.seed))
     checks.update(blocked_checks(args.tb, dev, g))
     checks.update(fused_checks(args.tb, dev, g))
@@ -1318,7 +1538,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
-                    "split", "device_ms", "library_device_ms"):
+                    "split", "device_ms", "library_device_ms", "geometry",
+                    "variants_device_ms", "grid"):
             if key in row:
                 kernels[-1][key] = row[key]
     outdir = ROOT / "chiprun_out"

@@ -33,3 +33,15 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+
+// A stored value in the compute type TW (f32 from f32, bf16 or fp8; f64 from
+// f64), and back: the kernels that run in f32 or f64 (the fused column step,
+// the blocked factor's phases) take their element type through these.
+template <typename TW, typename T>
+__device__ __forceinline__ TW widen(T v) { return to_f32(v); }
+template <>
+__device__ __forceinline__ double widen<double, double>(double v) { return v; }
+template <typename T, typename TW>
+__device__ __forceinline__ T narrow(TW v) { return from_f32<T>(v); }
+template <>
+__device__ __forceinline__ double narrow<double, double>(double v) { return v; }

@@ -11,6 +11,15 @@ On CUDA tensors :func:`fused_column_step` launches ``csrc/fused_column.cu``
 once (a cooperative grid whose phases are separated by grid-wide barriers);
 on CPU tensors it runs the plain version, :func:`fused_column_step_ref`.
 The arithmetic runs in the accumulator type: f64 for f64 tiles, else f32.
+
+Each phase walks a work list grid-stride, block b taking items b, b +
+grid, ...: the wave's output blocks (:func:`wave_items`, on the shared FFMA
+main loop of ``csrc/ffma_tile.cuh``), the blocked factor's steps
+(:func:`factor_steps`: panel rows, then the trailing tiles of
+:func:`trailing_tiles`, as ``csrc/potrf_blocked.cuh`` runs them) and the
+row solves' items (:func:`solve_items`).  These lists and the shared
+memory a block (:func:`smem_bytes`) are plain functions the CPU tests
+check; the kernel refuses any other shared-memory size.
 """
 from __future__ import annotations
 
@@ -18,19 +27,98 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, potrf
 from .ref import _round, cholesky_nan
 
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_GRID_ARGS = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
 _DTYPES = (torch.float64, torch.float32)
 #: class codes of csrc/fused_column.cu (enum Cls); -1 leaves a row unrounded
 CLASS_CODES = {"f64": 0, "f32": 1, "f16": 2, "bf16": 3, "f8e4m3": 4,
                "f8e4m3s": 5}
 MAX_ROWS = 256      # the class codes ride in the kernel's parameters
 MAX_TB = 1024       # eight rows of the solve in shared memory (64 KiB f64)
+THREADS = 256       # every phase (csrc/fused_column.cu)
+WARPS = THREADS // 32
+NB = 64             # diagonal and column blocks (csrc/tri_block.cuh)
+NB_LD = NB + 1
+SOLVE_ROWS = 8      # rows of one tile a solve item, one a warp
+KC = NB             # columns of L's panel a solve chunk
+#: the wave's geometry by tile type: (values a thread down, across, K
+#: columns a stage); a block of 16 x 16 threads, two cp.async stages
+WAVE = {torch.float32: (8, 4, 32), torch.float64: (4, 4, 16)}
+WAVE_STAGES = 2
 
 launches = 0    # kernel launches since the last ops.reset_counts()
+
+
+def wave_tile(dtype) -> tuple[int, int]:
+    """(rows, columns) of the wave's output block."""
+    tm, tn, _ = WAVE[dtype]
+    return 16 * tm, 16 * tn
+
+
+def wave_items(r_tiles: int, tb: int, dtype) -> list[tuple[int, int, int]]:
+    """(row tile, first row, first column) of each output block of the
+    wave, in the kernel's order; blocks past tb are masked."""
+    bm, bn = wave_tile(dtype)
+    return [(r, m0, n0) for r in range(r_tiles) for m0 in range(0, tb, bm)
+            for n0 in range(0, tb, bn)]
+
+
+def factor_steps(tb: int) -> list[tuple[int, int]]:
+    """(first column, width) of the factor's diagonal blocks; each step is
+    phase A (:func:`panel_rows`) and, but for the last, phase B
+    (:func:`trailing_tiles`), 2 tb / NB - 2 grid barriers in all."""
+    return potrf.steps(tb)
+
+
+def panel_rows(tb: int, kb: int, block: int, grid: int) -> list[int]:
+    """Rows below the diagonal block at ``kb`` that ``block`` solves."""
+    return potrf.panel_rows(tb, kb, min(NB, tb - kb), block, grid)
+
+
+def trailing_tiles(tb: int, kb: int) -> list[tuple[int, int]]:
+    """(first row, first column) of the lower 32 x 32 tiles the step at
+    ``kb`` updates, tile t going to block t % grid."""
+    return potrf.trailing_tiles(tb, kb)
+
+
+def solve_items(r_tiles: int, tb: int,
+                with_diag: bool) -> list[tuple[int, int]]:
+    """(row tile, first row) of each solve item: SOLVE_ROWS rows of every
+    tile after the diagonal (every tile without it), tile by tile."""
+    first = 1 if with_diag else 0
+    return [(r, g) for r in range(first, r_tiles)
+            for g in range(0, tb, SOLVE_ROWS)]
+
+
+def smem_bytes(tb: int, dtype) -> int:
+    """Shared memory a block: the largest phase's.  The wave's stages; the
+    factor's diagonal block, its factor and two pivot vectors (or phase B's
+    two NB x PAD slices); the solve's rows of X, a chunk of L's panel, the
+    diagonal block and its diagonal and reciprocals; the epilogue's warp
+    maxima."""
+    item = torch.empty((), dtype=dtype).element_size()
+    tm, tn, ks = WAVE[dtype]
+    wave = WAVE_STAGES * 16 * (tm + tn) * (ks + 16 // item) * item
+    factor = item * max(2 * NB * NB_LD + 2 * NB, 2 * NB * potrf.PAD)
+    solve = item * (SOLVE_ROWS * tb + KC * NB_LD + NB * NB_LD + 2 * NB)
+    return max(wave, factor, solve, item * (WARPS + 1))
+
+
+def grid(tb: int, dtype) -> dict:
+    """The cooperative grid the kernel launches at tile size ``tb`` on the
+    current card: blocks a SM from the occupancy query at
+    :func:`smem_bytes`, the SMs, and their product."""
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    fn = _build.function("fused_column", "fused_column_grid", _GRID_ARGS)
+    _build.check(fn(tb, int(dtype == torch.float64), ctypes.byref(per_sm),
+                    ctypes.byref(sms)), "fused_column_grid")
+    return {"tb": tb, "dtype": str(dtype).replace("torch.", ""),
+            "smem": smem_bytes(tb, dtype), "per_sm": per_sm.value,
+            "sms": sms.value, "grid": per_sm.value * sms.value}
 
 
 def _epilogue(x: torch.Tensor, cls_id: int, ladder) -> torch.Tensor:
@@ -94,6 +182,10 @@ def fused_column_step(c_stack, hist, bhist, l_kk, cls_ids, *, ladder,
         raise ValueError(f"fused_column_step: the kernel takes tb a multiple "
                          f"of 64 up to {MAX_TB} and up to {MAX_ROWS} rows, "
                          f"got tb={tb}, R={r_tiles}")
+    if any(t.data_ptr() % 16 for t in (c_stack, hist, bhist, l_kk)):
+        raise ValueError("fused_column_step: the kernel stages 16-byte "
+                         "vectors; every operand must start on a 16-byte "
+                         "boundary")
     codes = (ctypes.c_int * r_tiles)(
         *[-1 if int(i) < 0 else CLASS_CODES[ladder[int(i)]]
           for i in cls_ids])
@@ -103,7 +195,7 @@ def fused_column_step(c_stack, hist, bhist, l_kk, cls_ids, *, ladder,
         err = fn(c_stack.data_ptr(), hist.data_ptr(), bhist.data_ptr(),
                  l_kk.data_ptr(), out.data_ptr(), r_tiles, k_hist, tb,
                  int(with_diag), ctypes.addressof(codes),
-                 int(dt == torch.float64),
+                 int(dt == torch.float64), smem_bytes(tb, dt),
                  torch.cuda.current_stream(c_stack.device).cuda_stream)
     _build.check(err, "fused_column_step")
     launches += 1

@@ -5,6 +5,13 @@ n^3/3 of its flops.  On a CUDA tensor :func:`mxp_gemm_update` launches the
 hand-written kernel of ``csrc/mxp_gemm.cu`` (f32 FFMA accumulator seeded
 with C; A and B in f32, bf16 or fp8 e4m3); on CPU tensors it runs the plain
 version, :func:`repro_torch.kernels.ref.gemm_update_ref`.
+
+Each BM x BN output tile is a thread block cluster of ``split`` CTAs, CTA
+rank r summing K columns [r chunk, (r + 1) chunk) through the shared FFMA
+main loop (``csrc/ffma_tile.cuh``); the partial sums meet through
+distributed shared memory in rank order, rank r writing rows
+:func:`share_rows` of the tile.  The launch geometry is computed here, as
+plain functions the CPU tests check, and the kernel refuses any other.
 """
 from __future__ import annotations
 
@@ -15,16 +22,94 @@ import torch
 from . import _build
 from .ref import gemm_update_ref
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _AB_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
 _C_DTYPES = (torch.float32, torch.bfloat16)
+THREADS = 256           # 16 x 16 threads a CTA (csrc/ffma_tile.cuh)
+SIDE = 16
+KS = 32                 # K columns a pipeline stage; chunks are whole stages
+STAGES = 2              # cp.async stages in shared memory
+MICRO_TILES = ((8, 4), (8, 8))     # values a thread; the kernel takes these
+MICRO = (8, 4)          # the one the wrapper launches
+TARGET_CTAS = 256       # CTAs the split aims for (132 SMs, two CTAs each)
+MIN_CHUNK = 2 * KS      # K columns a CTA takes before the split grows
+MAX_SPLIT = 8           # CTAs a cluster (portable)
 
 launches = 0    # kernel launches since the last ops.reset_counts()
 
 
-def mxp_gemm_update(c: torch.Tensor, a: torch.Tensor,
-                    b: torch.Tensor) -> torch.Tensor:
-    """C - A @ B^T with f32 accumulation.  a: [M,K], b: [N,K], c: [M,N]."""
+def tile_shape(micro=MICRO) -> tuple[int, int]:
+    """(BM, BN): output rows and columns a cluster."""
+    tm, tn = micro
+    return SIDE * tm, SIDE * tn
+
+
+def tiles(m: int, n: int, micro=MICRO) -> tuple[int, int]:
+    """Output tiles down and across an m x n output."""
+    bm, bn = tile_shape(micro)
+    return -(-m // bm), -(-n // bn)
+
+
+def tile_origin(t: int, m: int, n: int, micro=MICRO) -> tuple[int, int]:
+    """(first row, first column) of tile ``t``, row by row (the kernel's
+    blockIdx.x / split)."""
+    bm, bn = tile_shape(micro)
+    tn = tiles(m, n, micro)[1]
+    return (t // tn) * bm, (t % tn) * bn
+
+
+def split_for(m: int, n: int, k: int, micro=MICRO,
+              split: int | None = None) -> tuple[int, int]:
+    """(split, chunk): CTAs a tile and K columns a CTA.  Unless ``split``
+    is given, enough CTAs for TARGET_CTAS over all tiles, but no chunk
+    below MIN_CHUNK and at most MAX_SPLIT; chunks are whole KS-column
+    stages and the last CTA's is not empty."""
+    if split is None:
+        tm, tn = tiles(m, n, micro)
+        split = max(1, min(MAX_SPLIT, -(-TARGET_CTAS // (tm * tn)),
+                           -(-k // MIN_CHUNK)))
+    while True:
+        chunk = -(-(-(-k // split)) // KS) * KS
+        if split == 1 or (split - 1) * chunk < k:
+            return split, chunk
+        split -= 1
+
+
+def chunk_bounds(k: int, split: int, chunk: int) -> list[tuple[int, int]]:
+    """[lo, hi) of K that each rank sums."""
+    return [(r * chunk, min(k, (r + 1) * chunk)) for r in range(split)]
+
+
+def share_rows(rank: int, split: int, micro=MICRO) -> range:
+    """Rows of a tile whose sums rank ``rank`` writes."""
+    bm = tile_shape(micro)[0]
+    return range(rank * bm // split, (rank + 1) * bm // split)
+
+
+def geometry(m: int, n: int, k: int, micro=MICRO,
+             split: int | None = None) -> dict:
+    """The launch: micro-tile, split, chunk, CTAs and shared memory a CTA
+    (the stages, or the partial sums after them if larger)."""
+    split, chunk = split_for(m, n, k, micro, split)
+    tm, tn = tiles(m, n, micro)
+    return {"micro": tuple(micro), "split": split, "chunk": chunk,
+            "ctas": tm * tn * split, "smem": smem_bytes(micro, 4)}
+
+
+def smem_bytes(micro=MICRO, itemsize: int = 4) -> int:
+    """Shared memory a CTA for operands of ``itemsize`` bytes: STAGES
+    stages of BM + BN rows of KS + one 16-byte vector, or the BM x (BN +
+    16) f32 partial sums, whichever is larger."""
+    bm, bn = tile_shape(micro)
+    stages = STAGES * (bm + bn) * (KS + 16 // itemsize) * itemsize
+    return max(stages, bm * (bn + 16) * 4)
+
+
+def mxp_gemm_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+                    micro=MICRO, split: int | None = None) -> torch.Tensor:
+    """C - A @ B^T with f32 accumulation.  a: [M,K], b: [N,K], c: [M,N].
+    ``micro`` and ``split`` choose another launch geometry of the same
+    kernel (for timing; the result is the same up to summation order)."""
     global launches
     m, k = a.shape
     n, kb = b.shape
@@ -37,13 +122,14 @@ def mxp_gemm_update(c: torch.Tensor, a: torch.Tensor,
             or c.dtype not in _C_DTYPES:
         raise TypeError(f"mxp_gemm_update: no kernel for a {a.dtype}, "
                         f"b {b.dtype}, c {c.dtype}")
+    split, chunk = split_for(m, n, k, micro, split)
     out = torch.empty_like(c)
     fn = _build.function("mxp_gemm", "mxp_gemm_update", _ARGS)
     with torch.cuda.device(c.device):
         err = fn(c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
                  m, n, k, _build.DTYPE_CODES[a.dtype],
-                 _build.DTYPE_CODES[c.dtype],
-                 torch.cuda.current_stream(c.device).cuda_stream)
+                 _build.DTYPE_CODES[c.dtype], micro[0], micro[1], split,
+                 chunk, torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(err, "mxp_gemm_update")
     launches += 1
     return out

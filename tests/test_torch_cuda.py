@@ -52,10 +52,11 @@ def _cuda_cases():
 
 # chip_smoke.py's BACKWARD_C: the residual of a blocked kernel is held to
 # BACKWARD_C units of the output type's roundoff at the residual's own scale
-# (_EPS_OUT).  A backward-stable factor or solve reaches at most about
-# (n + 1) units there; the card's readings over three seeds stay below 1.5
-# (n = 1: sqrt, the division and the square each round once) and a dropped
-# block update reads 50 or more (benchmarks/torch_tile_bounds.py).
+# (_EPS_OUT); POTRF's per 64-column block, so that the bound does not grow
+# with n.  A backward-stable factor or solve reaches at most about (n + 1)
+# units there (POTRF: the block's last column + 1); the card's readings stay
+# below 1.6 (n = 1: sqrt, the division and the square each round once) and a
+# dropped block update reads 50 or more (benchmarks/torch_tile_bounds.py).
 BACKWARD_C = 5
 _EPS_OUT = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
 _NB = 64            # the kernels' block edge (repro_torch.kernels.potrf.NB)
@@ -70,11 +71,16 @@ def _trsm_backward(x, l, c):
     return float((res / scale).max()) / _EPS_OUT[x.dtype]
 
 
-def _potrf_backward(lf, a):
-    """max|L L^T - sym(A)| / (max|A| n), in units of L's roundoff."""
+def _potrf_backward(lf, a, nb=_NB):
+    """max over 64-column blocks J of max|(L L^T - sym(A))[:, J]| / (max|A|
+    min(n, (J + 1) nb)), in units of L's roundoff: an entry of column j
+    sums j + 1 products."""
     ld, ad = lf.double(), a.double()
-    res = (ld @ ld.T - 0.5 * (ad + ad.T)).abs().max()
-    return float(res / (ad.abs().max() * ad.shape[0])) / _EPS_OUT[lf.dtype]
+    n = ad.shape[0]
+    res = (ld @ ld.T - 0.5 * (ad + ad.T)).abs().amax(dim=0)
+    terms = (torch.arange(n, device=ad.device) // nb + 1) * nb
+    scale = ad.abs().max() * terms.clamp(max=n)
+    return float((res / scale).max()) / _EPS_OUT[lf.dtype]
 
 
 def _potrf_dropped_update(a, nb=_NB):
@@ -113,14 +119,14 @@ def _trsm_dropped_block(l, c, nb=_NB):
                                          left=False).to(c.dtype)
 
 
-def _check_blocked(name, got, args, control=True):
+def _check_blocked(name, got, args):
     """The blocked kernel's residual within BACKWARD_C units; for an f32
-    output past one block (and ``control``), the control with one block
-    update dropped must fail.  (A bf16 output's own rounding, 2^-8 of an entry, is larger than
+    output past one block, the control with one block update dropped must
+    fail.  (A bf16 output's own rounding, 2^-8 of an entry, is larger than
     what one dropped block moves at this scale, so there the residual check
     holds the kernel to its rounding and the controls are f32's.)"""
     n = args[0].shape[0]
-    controlled = control and n > _NB and got.dtype == torch.float32
+    controlled = n > _NB and got.dtype == torch.float32
     if name == "potrf":
         (a,) = args
         ratio = _potrf_backward(got, a)
@@ -199,11 +205,10 @@ def test_cuda_blocked_largest_sizes(cuda, dtype):
     """The largest tiles the wrappers take: POTRF at n = 6144, whose grid
     (18,145 blocks needed) is capped at what the card holds, so each phase
     walks its work grid-stride; TRSM at n = 4096 (99 KiB of shared memory a
-    block).  POTRF's dropped-update control is not asked for here: with
-    the residual scaled by n, one dropped 64 x 64 update at n = 6144 reads
-    1.37 units on the card, inside the bound, so the bound checks the
-    kernel's rounding at this size, not its blocks (sizes up to 1000 and
-    the main path's 512 carry that control)."""
+    block).  Both dropped-update controls must fail here too: POTRF's
+    residual is held per 64-column block, so its bound does not grow with n
+    (scaled by n, one dropped 64 x 64 update read 1.37 units at n = 6144,
+    inside the bound)."""
     from repro_torch.kernels import potrf, trsm
     dt, tol = _TORCH[dtype], _tol(dtype)
     n = potrf.MAX_N
@@ -211,7 +216,7 @@ def test_cuda_blocked_largest_sizes(cuda, dtype):
     got = ops.potrf(spd)
     torch.testing.assert_close(got.double(), ref.potrf_ref(spd).double(),
                                atol=tol, rtol=tol)
-    _check_blocked("potrf", got, (spd,), control=False)
+    _check_blocked("potrf", got, (spd,))
     n = trsm.MAX_N
     l = torch.linalg.cholesky(torch.from_numpy(_spd(n, seed=12)).to(
         cuda).double()).to(dt).contiguous()
@@ -303,6 +308,79 @@ def test_cuda_syrk_split_k_ragged(cuda, m, k, dtype):
         assert _syrk_ratio(control, c, a) > 1.0
     else:
         assert dt == torch.bfloat16 and m == k == 1
+
+
+_GEMM_AB = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float8_e4m3fn": torch.float8_e4m3fn}
+
+
+def _gemm_tol(dtype, k):
+    """chip_smoke.py's: two f32 sums of k products in different orders, and
+    for a bf16 output the kernel's and the plain version's roundings, half
+    an ulp each (a whole ulp, 2^-7 of W, where the sums straddle a rounding
+    boundary)."""
+    return (2.0 ** -7 if dtype == torch.bfloat16 else 0.0) + \
+        2 * (k + 2) * 2.0 ** -24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype", DTYPES)
+@pytest.mark.parametrize("ab_dtype", list(_GEMM_AB))
+@pytest.mark.parametrize("k", _SYRK_SIZES)
+@pytest.mark.parametrize("m", _SYRK_SIZES)
+def test_cuda_gemm_split_k_ragged(cuda, m, k, ab_dtype, c_dtype):
+    """The cluster split-K GEMM at ragged M, N (every size) and K, each
+    entry at its own scale W = |C| + |A| |B|^T (_gemm_tol); the plain version
+    without the last rank's K chunk must fail that check wherever the chunk
+    moves some entry by more than four allowances."""
+    from repro_torch.kernels import mxp_gemm
+    ab, cdt = _GEMM_AB[ab_dtype], _TORCH[c_dtype]
+    tol = _tol(c_dtype)
+    for n in _SYRK_SIZES:
+        rng = np.random.default_rng([m, n, k])
+        c = torch.from_numpy(rng.standard_normal((m, n))).to(cuda, cdt)
+        a = torch.from_numpy(rng.standard_normal((m, k))).to(cuda, ab)
+        b = torch.from_numpy(rng.standard_normal((n, k))).to(cuda, ab)
+        ops.reset_counts()
+        got = ops.gemm_update(c, a, b)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["mxp_gemm_update"] == 1
+        assert got.dtype == cdt
+        want = ref.gemm_update_ref(c, a, b)
+        torch.testing.assert_close(got.double(), want.double(),
+                                   atol=max(m, n, k) * tol / 16, rtol=tol)
+        w = c.double().abs() + a.double().abs() @ b.double().abs().T
+        allow = _gemm_tol(cdt, k) * w
+
+        def ratio(x):
+            return float(((x.double() - want.double()).abs()
+                          / allow.clamp_min(1e-300)).max())
+        assert ratio(got) <= 1.0, (n, ratio(got))
+        split, chunk = mxp_gemm.split_for(m, n, k)
+        lo = mxp_gemm.chunk_bounds(k, split, chunk)[-1][0]
+        control = ref.gemm_update_ref(c, a[:, :lo].contiguous(),
+                                      b[:, :lo].contiguous())
+        moved = (a.double()[:, lo:] @ b.double()[:, lo:].T).abs()
+        if bool((moved > 4 * allow).any()):
+            assert ratio(control) > 1.0, (n, split, ratio(control))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro,split", [((8, 4), 2), ((8, 4), 4),
+                                         ((8, 8), 4), ((8, 8), 8)])
+def test_cuda_gemm_every_geometry_agrees(cuda, micro, split):
+    """The geometries timed beside the wrapper's compute the same update
+    within the f32 sum-order allowance."""
+    from repro_torch.kernels import mxp_gemm
+    n = 512
+    c = torch.from_numpy(_spd(n)).to(cuda)
+    a = torch.from_numpy(_mat(n)).to(cuda)
+    b = torch.from_numpy(_mat(n, seed=5)).to(cuda)
+    got = mxp_gemm.mxp_gemm_update(c, a, b, micro=micro, split=split)
+    want = ref.gemm_update_ref(c, a, b)
+    w = c.double().abs() + a.double().abs() @ b.double().abs().T
+    err = (got.double() - want.double()).abs() / (_gemm_tol(c.dtype, n) * w)
+    assert float(err.max()) <= 1.0
 
 
 @pytest.mark.cuda
@@ -479,6 +557,78 @@ def test_cuda_fused_executor_one_launch_per_column(cuda):
     assert counts.pop("fused_column_step") == n // tb
     assert set(counts.values()) == {0}
     assert np.abs(l - np.linalg.cholesky(a)).max() < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("tb", [512, 1024])
+def test_cuda_fused_nan_from_a_pivot_inside_a_block(cuda, tb, dtype):
+    """The diagonal tile's leading minor first fails at j = 100, inside the
+    second 64-wide block: row 0 is the leading factor left of j and NaN in
+    every lower entry from j on, as the plain column loop gives through its
+    sqrt; a later row's solve is finite left of j and NaN from j on."""
+    from repro_torch.kernels import fused_column
+    dt = torch.float32 if dtype == "float32" else torch.float64
+    j = 100
+    a = _spd(tb, seed=3).astype(np.float64)
+    a[j, j] = -5.0
+    assert np.all(np.linalg.eigvalsh(a[:j, :j]) > 0)
+    row = np.random.default_rng(4).standard_normal((tb, tb))
+    c = torch.from_numpy(np.stack([a, row])).to(cuda, dt)
+    got = fused_column.fused_column_step(
+        c, c.new_empty((2, 0, tb, tb)), c.new_empty((0, tb, tb)), c[0],
+        [-1, -1], ladder=_LADDER, with_diag=True).double()
+    torch.cuda.synchronize()
+    cd = c.double()
+    lead = torch.linalg.cholesky(cd[0, :j, :j])
+    below = torch.linalg.solve_triangular(lead.T, cd[0, j:, :j], upper=True,
+                                          left=False)
+    tol = 1e-12 if dt == torch.float64 else _tol("float32")
+    torch.testing.assert_close(got[0, :, :j], torch.cat([lead, below]),
+                               atol=tol, rtol=tol)
+    lower = torch.tril(torch.ones(tb - j, tb - j, dtype=torch.bool,
+                                  device=cuda))
+    assert torch.isnan(got[0, j:, j:][lower]).all()
+    assert not torch.isnan(got[0, :, :j]).any()
+    assert torch.isfinite(got[1, :, :j]).all()
+    assert torch.isnan(got[1, :, j:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_fused_phase_controls(cuda, dtype):
+    """The in-launch factor and the row solves alone (R = 1, K = 0) each
+    pass the row check, and a version that leaves one 64 x 64 block update
+    out of each (the trailing tile (last, 1) of the factor's first step;
+    the block (J, J - 1) of the solve) fails it; the f32 factor is also
+    held to POTRF's per-block residual, which the control fails too."""
+    from repro_torch.kernels import fused_column
+    dt = torch.float32 if dtype == "float32" else torch.float64
+    tb = 512
+    cls = "f64" if dt == torch.float64 else "f32"
+    tol = _fused_tol(cls, tb, dt)
+    spd = _spd(tb, seed=7).astype(np.float64)   # off-diagonal 1/sqrt(tb)
+    l_kk = torch.from_numpy(np.linalg.cholesky(spd)).to(cuda, dt)
+    hist = torch.empty((1, 0, tb, tb), dtype=dt, device=cuda)
+    bhist = torch.empty((0, tb, tb), dtype=dt, device=cuda)
+    for with_diag in (True, False):
+        tile = spd if with_diag else _mat(tb, seed=8)
+        c = torch.from_numpy(tile[None].copy()).to(cuda, dt)
+        kw = dict(ladder=_LADDER, with_diag=with_diag)
+        got = fused_column.fused_column_step(c, hist, bhist, l_kk, [-1], **kw)
+        want = fused_column.fused_column_step_ref(c, hist, bhist, l_kk, [-1],
+                                                  **kw)
+        if with_diag:
+            control = _potrf_dropped_update(c[0]).to(dt)
+        else:
+            control = _trsm_dropped_block(l_kk, c[0])
+        scale = want.double().abs().max()
+        err = float((got.double() - want.double()).abs().max() / scale)
+        ctrl = float((control.double() - want[0].double()).abs().max() / scale)
+        assert err <= tol and ctrl > tol, (with_diag, err, ctrl)
+        if with_diag and dt == torch.float32:
+            assert _potrf_backward(got[0], c[0]) <= BACKWARD_C
+            assert _potrf_backward(control, c[0]) > BACKWARD_C
 
 
 # --------------------------------------------------------------------------

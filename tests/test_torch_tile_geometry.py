@@ -1,11 +1,11 @@
-"""Launch geometry of the blocked POTRF and TRSM kernels and of the
-cluster split-K SYRK, on the CPU.
+"""Launch geometry of the blocked POTRF and TRSM kernels, of the cluster
+split-K SYRK and GEMM, and of the fused column step's phases, on the CPU.
 
-The wrappers ``repro_torch.kernels.potrf``, ``repro_torch.kernels.trsm``
-and ``repro_torch.kernels.syrk`` compute each launch's geometry as plain
+The wrappers ``repro_torch.kernels.potrf``, ``trsm``, ``syrk``,
+``mxp_gemm`` and ``fused_column`` compute each launch's geometry as plain
 functions (rows a block, blocks, shared memory a block, the cooperative
-grid, the split of K over a cluster) and the CUDA sources refuse any
-other, so these checks hold what the card runs: the shared memory
+grid, the split of K over a cluster, each phase's work list) and the CUDA
+sources refuse any other, so these checks hold what the card runs: the shared memory
 stays within a block's 232,448 bytes (hopper-kernels guide, section 1) at
 every size the wrappers accept, and each row, column and tile of the work
 is covered exactly once.
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, potrf, syrk, trsm
+from repro_torch.kernels import _build, fused_column, mxp_gemm, potrf, syrk, trsm
 
 SMEM_LIMIT = 232_448        # bytes of shared memory a block can have (H100)
 RAGGED = [1, 31, 33, 63, 64, 65, 100, 257, 511, 512, 513, 1000]
@@ -198,3 +198,154 @@ def test_syrk_share_rows_partition_the_block(split):
         assert len(r) >= syrk.TILE // split
         rows[r.start:r.stop] += 1
     assert (rows == 1).all()
+
+
+# --------------------------------------------------------------------------
+# GEMM: output tiles, K chunks of a cluster, rows each rank writes, memory
+# --------------------------------------------------------------------------
+
+GEMM_SIZES = [1, 31, 33, 63, 64, 65, 100, 128, 129, 257, 512, 513, 1000]
+
+
+@pytest.mark.parametrize("micro", mxp_gemm.MICRO_TILES)
+@pytest.mark.parametrize("m,n", [(m, n) for m in GEMM_SIZES[::2]
+                                 for n in GEMM_SIZES[1::2]] + [(512, 512)])
+def test_gemm_every_output_tile_once(m, n, micro):
+    """The kernel's tile t = blockIdx.x / split covers rows and columns
+    from tile_origin; every entry of the output lies in exactly one tile."""
+    bm, bn = mxp_gemm.tile_shape(micro)
+    tm, tn = mxp_gemm.tiles(m, n, micro)
+    cover = np.zeros((tm * bm, tn * bn), int)
+    for t in range(tm * tn):
+        r0, c0 = mxp_gemm.tile_origin(t, m, n, micro)
+        assert r0 < m and c0 < n
+        cover[r0:r0 + bm, c0:c0 + bn] += 1
+    assert (cover[:m, :n] == 1).all()
+
+
+@pytest.mark.parametrize("micro", mxp_gemm.MICRO_TILES)
+@pytest.mark.parametrize("k", GEMM_SIZES + [4096])
+def test_gemm_every_k_column_in_one_chunk(k, micro):
+    """Every K column lies in exactly one rank's chunk, and no chunk is
+    empty, at the wrapper's split for several output shapes and at every
+    forced split 1-8; the conditions csrc/mxp_gemm.cu checks hold."""
+    splits = {mxp_gemm.split_for(m, m, k, micro) for m in (1, 100, 512, 1000)}
+    splits |= {mxp_gemm.split_for(512, 512, k, micro, s) for s in range(1, 9)}
+    for split, chunk in splits:
+        assert 1 <= split <= mxp_gemm.MAX_SPLIT and chunk % mxp_gemm.KS == 0
+        cols = np.zeros(k, int)
+        for lo, hi in mxp_gemm.chunk_bounds(k, split, chunk):
+            assert lo < hi                         # no rank is idle
+            cols[lo:hi] += 1
+        assert (cols == 1).all()
+        assert split * chunk >= k > (split - 1) * chunk
+
+
+def test_gemm_geometry_at_the_main_path_tile():
+    """512^3: 128 x 64 tiles (8 x 4 values a thread), split 8, 256 CTAs,
+    two resident a SM (132 SMs); small K keeps one CTA a tile."""
+    geo = mxp_gemm.geometry(512, 512, 512)
+    assert geo["micro"] == (8, 4) and geo["split"] == 8
+    assert geo["chunk"] == 64 and geo["ctas"] == 256 <= 2 * 132
+    assert mxp_gemm.split_for(512, 512, 512, (8, 8)) == (8, 64)
+    assert [mxp_gemm.split_for(512, 512, k)[0] for k in (1, 31, 64)] == [1] * 3
+
+
+@pytest.mark.parametrize("micro", mxp_gemm.MICRO_TILES)
+@pytest.mark.parametrize("split", range(1, 9))
+def test_gemm_share_rows_partition_the_tile(split, micro):
+    bm = mxp_gemm.tile_shape(micro)[0]
+    rows = np.zeros(bm, int)
+    for rank in range(split):
+        r = mxp_gemm.share_rows(rank, split, micro)
+        assert len(r) >= bm // split
+        rows[r.start:r.stop] += 1
+    assert (rows == 1).all()
+
+
+@pytest.mark.parametrize("micro", mxp_gemm.MICRO_TILES)
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+def test_gemm_shared_memory_fits(micro, itemsize):
+    """The stages of every operand type, or the f32 partial sums, within a
+    block's limit at every size (the geometry does not depend on M, N, K)
+    and, for the wrapper's 8 x 4, two CTAs within the SM's 228 KiB."""
+    smem = mxp_gemm.smem_bytes(micro, itemsize)
+    bm, bn = mxp_gemm.tile_shape(micro)
+    assert smem >= bm * (bn + 16) * 4
+    assert smem <= SMEM_LIMIT
+    if micro == mxp_gemm.MICRO:
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+# --------------------------------------------------------------------------
+# the fused column step: the phases' work lists and the shared memory
+# --------------------------------------------------------------------------
+
+FUSED_TB = [64, 128, 192, 512, 1024]
+_FUSED_DT = [torch.float32, torch.float64]
+
+
+@pytest.mark.parametrize("dtype", _FUSED_DT)
+@pytest.mark.parametrize("tb", FUSED_TB)
+def test_fused_wave_covers_every_entry_once(tb, dtype):
+    r_tiles = 3
+    bm, bn = fused_column.wave_tile(dtype)
+    cover = np.zeros((r_tiles, tb + bm, tb + bn), int)
+    for r, m0, n0 in fused_column.wave_items(r_tiles, tb, dtype):
+        assert m0 < tb and n0 < tb
+        cover[r, m0:m0 + bm, n0:n0 + bn] += 1
+    assert (cover[:, :tb, :tb] == 1).all()
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132, 264])
+@pytest.mark.parametrize("tb", FUSED_TB)
+def test_fused_factor_covers_every_lower_entry_once(tb, grid):
+    """Each step of the in-launch factor: the panel rows below the diagonal
+    block once each (a warp a row), and every lower entry of the trailing
+    matrix once (its 32 x 32 tiles, tile t to block t % grid)."""
+    steps = fused_column.factor_steps(tb)
+    assert len(steps) == tb // fused_column.NB
+    assert sum(w for _, w in steps) == tb
+    for kb, width in steps:
+        p0 = kb + width
+        rows = np.zeros(tb, int)
+        for b in range(grid):
+            for i in fused_column.panel_rows(tb, kb, b, grid):
+                rows[i] += 1
+        assert (rows[p0:] == 1).all() and not rows[:p0].any()
+        count = np.zeros((tb, tb), int)
+        tiles = fused_column.trailing_tiles(tb, kb)
+        for b in range(grid):
+            for r0, c0 in tiles[b::grid]:
+                count[r0:r0 + 32, c0:c0 + 32] += 1
+        want = np.zeros((tb, tb), int)
+        want[p0:, p0:] = np.tril(np.ones((tb - p0, tb - p0), int))
+        assert (np.tril(count) == want).all()
+    # two grid barriers a step but the last: 14 at tb = 512
+    assert 2 * len(steps) - 2 == 2 * tb // 64 - 2
+
+
+@pytest.mark.parametrize("with_diag", [True, False])
+@pytest.mark.parametrize("tb", FUSED_TB)
+def test_fused_solves_cover_every_row_once(tb, with_diag):
+    r_tiles = 5
+    rows = np.zeros((r_tiles, tb), int)
+    for r, g in fused_column.solve_items(r_tiles, tb, with_diag):
+        rows[r, g:g + fused_column.SOLVE_ROWS] += 1
+    first = 1 if with_diag else 0
+    assert (rows[first:] == 1).all() and not rows[:first].any()
+    assert len(fused_column.solve_items(32, 512, True)) == 31 * 64
+
+
+@pytest.mark.parametrize("dtype", _FUSED_DT)
+def test_fused_shared_memory_fits_every_tb(dtype):
+    """The largest phase's shared memory at every tile size the wrapper
+    takes, within a block's limit; at the main path's tb = 512 two blocks
+    fit a SM in f32 and in f64."""
+    item = 4 if dtype == torch.float32 else 8
+    for tb in range(64, fused_column.MAX_TB + 1, 64):
+        smem = fused_column.smem_bytes(tb, dtype)
+        solve = item * (8 * tb + 2 * 64 * 65 + 128)
+        assert smem >= solve and smem <= SMEM_LIMIT, (tb, smem)
+    assert 2 * (fused_column.smem_bytes(512, dtype) + 1024) <= 228 * 1024
+    assert fused_column.smem_bytes(512, torch.float32) == 55296
