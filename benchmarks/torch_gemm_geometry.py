@@ -4,11 +4,11 @@
     python3 benchmarks/torch_gemm_geometry.py [--sizes 512 2048] [--reps 100]
 
 For each square size n (C - A B^T with n x n f32 operands, TF32 off) and
-each micro-tile of ``mxp_gemm.MICRO_TILES`` at splits 1, 2, 4 and 8 (split
-1 is one CTA a tile walking all of K: the FFMA main loop alone, no cluster
-reduction), the profiler's device time a call (``chip_smoke.device_ms``)
-beside the wrapper's own geometry, ``c - a @ b.T`` and ``a @ b.T`` alone,
-and the rate 2 n^3 / time.  Needs a CUDA device; writes
+each split 1, 2, 4 and 8 of the kernel's 128 x 64 tiles (split 1 is one CTA
+a tile walking all of K: the FFMA main loop alone, no cluster reduction),
+the profiler's device time a call (``chip_smoke.device_ms``) beside the
+wrapper's own geometry, ``c - a @ b.T`` and ``a @ b.T`` alone, and the rate
+2 n^3 / time.  Needs a CUDA device; writes
 ``chiprun_out/torch_gemm_geometry.json``.
 """
 from __future__ import annotations
@@ -48,12 +48,10 @@ def main() -> int:
         row = {"geometry": mxp_gemm.geometry(n, n, n)}
         row["wrapper_ms"] = cs.device_ms(
             lambda: mxp_gemm.mxp_gemm_update(c, a, b), reps)
-        for micro in mxp_gemm.MICRO_TILES:
-            for split in (1, 2, 4, 8):
-                sp, chunk = mxp_gemm.split_for(n, n, n, micro, split)
-                row[f"{micro[0]}x{micro[1]},split={sp}"] = cs.device_ms(
-                    lambda: mxp_gemm.mxp_gemm_update(c, a, b, micro=micro,
-                                                     split=sp), reps)
+        for split in (1, 2, 4, 8):
+            geo = mxp_gemm.split_for(n, n, n, split)
+            row[f"split={geo[0]}"] = cs.device_ms(
+                lambda: mxp_gemm._launch(c, a, b, *geo), reps)
         row["library_ms"] = cs.device_ms(lambda: c - a @ b.T, reps)
         row["library_matmul_only_ms"] = cs.device_ms(lambda: a @ b.T, reps)
         flops = 2.0 * n ** 3

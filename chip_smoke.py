@@ -236,14 +236,6 @@ def kernel_checks(tb: int, dev, g) -> dict:
                         "bound_by": ("operations" if bound_f >= bound_b
                                      else "bytes"),
                         "flops": flops, "bytes": nbytes})
-                    if name == "mxp_gemm_update":
-                        # the geometries tried, by device time (the wrapper
-                        # launches mxp_gemm.MICRO at split_for's split)
-                        row["variants_device_ms"] = {
-                            f"{tm}x{tn},split={sp}": device_ms(
-                                lambda tm=tm, tn=tn, sp=sp:
-                                kern(*args, micro=(tm, tn), split=sp))
-                            for (tm, tn), sp in GEMM_VARIANTS}
                     if name == "potrf":
                         # cholesky checks its info on the host after each
                         # call (a sync); cholesky_ex does not. The faster
@@ -262,11 +254,6 @@ def kernel_checks(tb: int, dev, g) -> dict:
     return results
 
 
-# The GEMM's launch geometries timed beside the wrapper's: (micro-tile,
-# split) at the main path's tile (mxp_gemm.MICRO_TILES; split 8 at 8 x 4 is
-# the wrapper's choice at 512^3).
-GEMM_VARIANTS = (((8, 4), 2), ((8, 4), 4), ((8, 4), 8), ((8, 8), 4),
-                 ((8, 8), 8))
 # The GEMM is held entry by entry at each entry's own scale W = |C| + |A|
 # |B|^T, over ragged M, N, K (SYRK_SIZES) with A and B in f32, bf16 and fp8
 # (exact in f32, as are their products) and C in f32 and bf16. Two f32
@@ -1539,7 +1526,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
                     "split", "device_ms", "library_device_ms", "geometry",
-                    "variants_device_ms", "grid"):
+                    "grid"):
             if key in row:
                 kernels[-1][key] = row[key]
     outdir = ROOT / "chiprun_out"

@@ -31,8 +31,9 @@
 // factor, the solves and the epilogue then work on out in place.
 //
 // What the design does about it, phase by phase (the work lists are
-// kernels/fused_column.py's wave_items, factor_steps, trailing_tiles and
-// solve_items):
+// kernels/fused_column.py's wave_items and solve_items, whose lengths the C
+// entry checks, and for the factor potrf.py's steps, panel_rows and
+// trailing_tiles):
 //   1. the wave runs the port's one FFMA main loop (ffma_tile.cuh) in T: a
 //      block owns a 128 x 64 output block in f32 (8 x 4 values a thread) or
 //      64 x 64 in f64 (4 x 4), and streams H[r, kk] and B[kk] through two
@@ -103,6 +104,18 @@ static size_t fused_smem_bytes(int tb) {
   if (solve > s) s = solve;
   if (red > s) s = red;
   return s;
+}
+
+// the lengths of the wave's and the solves' work lists (mirrored by
+// fused_column.py's wave_items and solve_items): output blocks of every row,
+// and SOLVE_ROWS rows of every tile after the diagonal (every tile without it)
+template <typename T>
+__host__ __device__ inline int n_wave_items(int r_tiles, int tb) {
+  using G = typename Wave<T>::G;
+  return r_tiles * ((tb + G::BM - 1) / G::BM) * ((tb + G::BN - 1) / G::BN);
+}
+__host__ __device__ inline int n_solve_items(int r_tiles, int tb, int with_diag) {
+  return (r_tiles - (with_diag ? 1 : 0)) * (tb / SOLVE_ROWS);
 }
 
 // storage classes, mirrored by fused_column.py (CLASS_CODES); -1 = none
@@ -239,8 +252,6 @@ __device__ void epilogue_tile(T* x, int n, int cls, T* red) {
 }
 
 // ---------------------------------------------------------------- phase 2
-// Cholesky of the symmetrised tile in place, column by column (potrf.cu's
-// ---------------------------------------------------------------- phase 2
 // Block 0 after the factor: the strict upper triangle of the factor to zero
 // (the blocked factor never writes it; its first step read the accumulator's
 // upper half), then the class round of the whole tile.
@@ -345,7 +356,7 @@ __device__ void solve_rows(const T* __restrict__ l, T* x, int n, T* sm) {
     T* xc = sx + (size_t)j0 * SOLVE_ROWS + warp;
     T v0 = xc[lane * SOLVE_ROWS] - s0;
     T v1 = xc[(lane + 32) * SOLVE_ROWS] - s1;
-    solve_row_block<true>(v0, v1, sd, dg, rg, NB);
+    solve_row_block(v0, v1, sd, dg, rg, NB);
     xc[lane * SOLVE_ROWS] = v0;
     xc[(lane + 32) * SOLVE_ROWS] = v1;
   }
@@ -368,8 +379,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   const size_t tile = (size_t)tb * tb;
 
   // 1. the update wave over every row's output blocks
-  const int mt = (tb + G::BM - 1) / G::BM, nt = (tb + G::BN - 1) / G::BN;
-  const int items = p.R * mt * nt;
+  const int nt = (tb + G::BN - 1) / G::BN, mt = (tb + G::BM - 1) / G::BM;
+  const int items = n_wave_items<T>(p.R, tb);
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int r = it / (mt * nt), b = it % (mt * nt);
     wave_block(p, r, (b / nt) * G::BM, (b % nt) * G::BN, smem);
@@ -388,7 +399,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   // 3. the row solves, eight rows of a later tile an item
   const T* l = p.with_diag ? p.out : p.lkk;
   const int groups = tb / SOLVE_ROWS;
-  const int solves = (p.R - first) * groups;
+  const int solves = n_solve_items(p.R, tb, p.with_diag);
   for (int it = blockIdx.x; it < solves; it += gridDim.x)
     solve_rows(l, p.out + (first + it / groups) * tile +
                       (size_t)(it % groups) * SOLVE_ROWS * tb, tb, smem);
@@ -454,18 +465,24 @@ static bool aligned16(const void* p) {
 }
 
 // One fused column step. cls holds r_tiles class codes on the host; f64
-// selects the double variant; smem must be the shared memory a block that
-// kernels/fused_column.py computed (any other is refused), and every tile
-// must start on a 16-byte boundary. Returns the launch's cudaError_t.
+// selects the double variant; smem, wave_items and solve_items must be the
+// shared memory a block and the lengths of the wave's and the solves' work
+// lists that kernels/fused_column.py computed (any other is refused), and
+// every tile must start on a 16-byte boundary. Returns the launch's
+// cudaError_t.
 extern "C" int fused_column_step(const void* c, const void* hist,
                                  const void* bhist, const void* lkk, void* out,
                                  int r_tiles, int k_hist, int tb, int with_diag,
                                  const int* cls, int f64, int smem,
+                                 int wave_items, int solve_items,
                                  void* stream) {
   if (r_tiles <= 0 || r_tiles > MAX_ROWS || k_hist < 0 || tb <= 0 || tb % NB ||
       tb > MAX_TB ||
       static_cast<size_t>(smem) != (f64 ? fused_smem_bytes<double>(tb)
                                         : fused_smem_bytes<float>(tb)) ||
+      wave_items != (f64 ? n_wave_items<double>(r_tiles, tb)
+                         : n_wave_items<float>(r_tiles, tb)) ||
+      solve_items != n_solve_items(r_tiles, tb, with_diag) ||
       !aligned16(c) || !aligned16(hist) || !aligned16(bhist) ||
       !aligned16(lkk) || !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -16,16 +16,16 @@
 // at 512 x 512 (half the 132 SMs idle), one stage with no load/compute
 // overlap, and 16 FFMAs per two float4 reads of shared memory.
 //
-// What the design does about it: the output is cut in BM x BN tiles
-// (ffma_tile.cuh: 128 x 64 at 8 x 4 values a thread, or 128 x 128 at 8 x 8),
-// and each tile is a thread block cluster of `split` CTAs that split K:
-// CTA rank r sums K columns [r chunk, (r + 1) chunk) through the shared FFMA
-// main loop (two cp.async stages of 32 columns; 128 CTAs at 512^3 with
-// 128 x 64 tiles and split 4). Rank 0 alone seeds its accumulator with C.
+// What the design does about it: the output is cut in 128 x 64 tiles
+// (ffma_tile.cuh at 8 x 4 values a thread), and each tile is a thread block
+// cluster of `split` CTAs that split K: CTA rank r sums K columns
+// [r chunk, (r + 1) chunk) through the shared FFMA main loop (two cp.async
+// stages of 32 columns; at 512^3, split 8: 256 CTAs, two a SM). Rank 0
+// alone seeds its accumulator with C.
 // The partial sums then meet through distributed shared memory: rank r sums
 // the `split` partials of rows [r BM / split, (r + 1) BM / split) of the tile
 // in rank order (deterministic, no atomics) and writes them, rounded once to
-// C's type. The geometry (micro-tile, split, chunk) comes from the wrapper
+// C's type. The geometry (split, chunk) comes from the wrapper
 // (repro_torch/kernels/mxp_gemm.py), which the C entry checks.
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -37,30 +37,30 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int KS = 32;              // K columns a stage
+constexpr int TM = 8, TN = 4;       // values a thread (mirrored in mxp_gemm.py)
 constexpr int MAX_SPLIT = 8;        // a portable cluster
 
-template <typename TAB, int TM, int TN>
+template <typename TAB>
 using Geom = FfmaTile<TAB, TM, TN, KS>;
 
 // the partial sums, [BM][BN + 16] f32, reuse the stages after the main
 // loop; the row stride keeps float4 reads aligned and puts the two rows a
 // warp writes at once in different banks
-template <int TN>
 constexpr int RED_LD = FFMA_SIDE * TN + 16;
-template <typename TAB, int TM, int TN>
+template <typename TAB>
 constexpr size_t smem_bytes() {
-  using G = Geom<TAB, TM, TN>;
-  const size_t red = (size_t)G::BM * RED_LD<TN> * sizeof(float);
+  using G = Geom<TAB>;
+  const size_t red = (size_t)G::BM * RED_LD * sizeof(float);
   return G::SMEM_BYTES > red ? G::SMEM_BYTES : red;
 }
 
-// 8 x 4 fits two CTAs a SM (128 registers a thread), 8 x 8 one
-template <typename TAB, typename TC, int TM, int TN, bool VEC>
-__global__ void __launch_bounds__(FFMA_THREADS, TM * TN <= 32 ? 2 : 1)
+// two CTAs a SM (128 registers a thread)
+template <typename TAB, typename TC, bool VEC>
+__global__ void __launch_bounds__(FFMA_THREADS, 2)
     mxp_gemm_kernel(const TC* __restrict__ c, const TAB* __restrict__ a,
                     const TAB* __restrict__ b, TC* __restrict__ out, int M,
                     int N, int K, int tiles_n, int split, int chunk) {
-  using G = Geom<TAB, TM, TN>;
+  using G = Geom<TAB>;
   extern __shared__ __align__(16) uint8_t smem[];
   TAB* stages = reinterpret_cast<TAB*>(smem);
   float* red = reinterpret_cast<float*>(smem);     // [BM][RED_LD], after
@@ -96,7 +96,7 @@ __global__ void __launch_bounds__(FFMA_THREADS, TM * TN <= 32 ? 2 : 1)
   // this rank's partial sums, then the cluster's: rank r sums rows
   // [r BM / split, (r + 1) BM / split) of every partial in rank order, four
   // columns at a time, every rank's four loaded before the sum
-  constexpr int RLD = RED_LD<TN>;
+  constexpr int RLD = RED_LD;
   constexpr int BN4 = G::BN / 4;
   const int tx = ffma_tx(), ty = ffma_ty();
   __syncthreads();                      // the last stage's readers are done
@@ -134,17 +134,17 @@ __global__ void __launch_bounds__(FFMA_THREADS, TM * TN <= 32 ? 2 : 1)
   cluster.sync();   // no rank leaves while another reads its partials
 }
 
-template <typename TAB, typename TC, int TM, int TN>
+template <typename TAB, typename TC>
 int launch(const void* c, const void* a, const void* b, void* out, int m,
            int n, int k, int split, int chunk, cudaStream_t stream) {
-  using G = Geom<TAB, TM, TN>;
+  using G = Geom<TAB>;
   const bool vec = (k % G::VEC == 0) &&
                    (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(b) % 16 == 0);
   const int tiles_m = (m + G::BM - 1) / G::BM, tiles_n = (n + G::BN - 1) / G::BN;
-  constexpr size_t smem = smem_bytes<TAB, TM, TN>();
-  auto kern = vec ? mxp_gemm_kernel<TAB, TC, TM, TN, true>
-                  : mxp_gemm_kernel<TAB, TC, TM, TN, false>;
+  constexpr size_t smem = smem_bytes<TAB>();
+  auto kern = vec ? mxp_gemm_kernel<TAB, TC, true>
+                  : mxp_gemm_kernel<TAB, TC, false>;
   static bool opted_in[2] = {false, false};     // once a kernel, not a call
   cudaError_t e;
   if (!opted_in[vec]) {
@@ -171,45 +171,31 @@ int launch(const void* c, const void* a, const void* b, void* out, int m,
   return static_cast<int>(e);
 }
 
-template <typename TAB, typename TC>
-int dispatch_micro(const void* c, const void* a, const void* b, void* out,
-                   int m, int n, int k, int tm, int tn, int split, int chunk,
-                   cudaStream_t s) {
-  if (tm == 8 && tn == 4)
-    return launch<TAB, TC, 8, 4>(c, a, b, out, m, n, k, split, chunk, s);
-  if (tm == 8 && tn == 8)
-    return launch<TAB, TC, 8, 8>(c, a, b, out, m, n, k, split, chunk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <typename TC>
 int dispatch_ab(const void* c, const void* a, const void* b, void* out, int m,
-                int n, int k, int ab_dtype, int tm, int tn, int split,
-                int chunk, cudaStream_t s) {
+                int n, int k, int ab_dtype, int split, int chunk,
+                cudaStream_t s) {
   switch (ab_dtype) {
     case DT_F32:
-      return dispatch_micro<float, TC>(c, a, b, out, m, n, k, tm, tn, split, chunk, s);
+      return launch<float, TC>(c, a, b, out, m, n, k, split, chunk, s);
     case DT_BF16:
-      return dispatch_micro<__nv_bfloat16, TC>(c, a, b, out, m, n, k, tm, tn,
-                                               split, chunk, s);
+      return launch<__nv_bfloat16, TC>(c, a, b, out, m, n, k, split, chunk, s);
     case DT_F8E4M3:
-      return dispatch_micro<__nv_fp8_e4m3, TC>(c, a, b, out, m, n, k, tm, tn,
-                                               split, chunk, s);
+      return launch<__nv_fp8_e4m3, TC>(c, a, b, out, m, n, k, split, chunk, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// out = C - A @ B^T with the wrapper's geometry: a tm x tn micro-tile a
-// thread (8 x 4 or 8 x 8: tiles of 16 tm x 16 tn), split CTAs a tile (1 to
-// 8) and chunk K columns a CTA (a multiple of 32, split chunks covering k
-// and the last one not empty); any other is refused. Returns
+// out = C - A @ B^T with the wrapper's geometry: split CTAs a 128 x 64 tile
+// (1 to 8) and chunk K columns a CTA (a multiple of 32, split chunks
+// covering k and the last one not empty); any other is refused. Returns
 // cudaGetLastError() after the launch.
 extern "C" int mxp_gemm_update(const void* c, const void* a, const void* b,
                                void* out, int m, int n, int k, int ab_dtype,
-                               int c_dtype, int tm, int tn, int split,
-                               int chunk, void* stream) {
+                               int c_dtype, int split, int chunk,
+                               void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || split < 1 || split > MAX_SPLIT ||
       chunk <= 0 || chunk % KS || (long long)split * chunk < k ||
       (long long)(split - 1) * chunk >= k)
@@ -218,11 +204,11 @@ extern "C" int mxp_gemm_update(const void* c, const void* a, const void* b,
   int err;
   switch (c_dtype) {
     case DT_F32:
-      err = dispatch_ab<float>(c, a, b, out, m, n, k, ab_dtype, tm, tn, split, chunk, s);
+      err = dispatch_ab<float>(c, a, b, out, m, n, k, ab_dtype, split, chunk, s);
       break;
     case DT_BF16:
-      err = dispatch_ab<__nv_bfloat16>(c, a, b, out, m, n, k, ab_dtype, tm, tn,
-                                       split, chunk, s);
+      err = dispatch_ab<__nv_bfloat16>(c, a, b, out, m, n, k, ab_dtype, split,
+                                       chunk, s);
       break;
     default: err = static_cast<int>(cudaErrorInvalidValue);
   }

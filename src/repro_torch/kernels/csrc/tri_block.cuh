@@ -30,40 +30,30 @@ __device__ __forceinline__ double rsqrt_approx(double x) { return rsqrt(x); }
 constexpr int HB = NB / 2;        // the half block one warp factors in registers
 
 // One link of solve_row_block: column c's quotient, by Markstein's
-// correction (fast) or by the division itself. KEEP_ZEROS: the lanes keep
-// the sums of the solved terms (p0, p1, from +0) apart from the row's values
-// and column c is (v_c - p_c) / d, the residual of the quotient taken as
-// q0 d - v and subtracted: the same values, and a signed zero comes out as
-// the division gives it (v_c = -0 with nothing to subtract stays -0, which
-// the in-place fma(-x, l, v) and q0 + (v - q0 d) r do not keep).
-template <bool FAST, bool KEEP_ZEROS, typename T>
-__device__ __forceinline__ void solve_link(T& v0, T& v1, T& p0, T& p1,
-                                           const T* s, const T* dv,
-                                           const T* rv, int c, int lane) {
+// correction (fast) or by the division itself, then each later column's
+// update v_j -= x L[j][c] in place. Signed zeros come out as the division
+// and the reference BLAS trsm give them: the quotient's residual is taken
+// as q0 d - v and subtracted (q0 + (v - q0 d) r would turn x = -0 into +0),
+// and an update is skipped where L[j][c] is zero, as that trsm skips it (a
+// zero product would turn v_j = -0 into +0). Neither adds an operation to
+// the chain from one link's shuffle to the next.
+template <bool FAST, typename T>
+__device__ __forceinline__ void solve_link(T& v0, T& v1, const T* s,
+                                           const T* dv, const T* rv, int c,
+                                           int lane) {
   const T d = dv[c];
   const T l0 = s[lane * NB_LD + c], l1 = s[(lane + 32) * NB_LD + c];
-  T vc;
-  if (KEEP_ZEROS)
-    vc = __shfl_sync(0xffffffffu, c < 32 ? v0 - p0 : v1 - p1, c & 31);
-  else
-    vc = __shfl_sync(0xffffffffu, c < 32 ? v0 : v1, c & 31);
+  const T vc = __shfl_sync(0xffffffffu, c < 32 ? v0 : v1, c & 31);
   T x;
   if (FAST) {
     const T r = rv[c], q0 = vc * r;
-    x = KEEP_ZEROS ? fma(-fma(q0, d, -vc), r, q0) : fma(fma(-q0, d, vc), r, q0);
+    x = fma(-fma(q0, d, -vc), r, q0);
   } else {
     x = vc / d;
   }
-  if (KEEP_ZEROS) {
-    p0 = lane > c ? fma(x, l0, p0) : p0;
-    p1 = lane + 32 > c ? fma(x, l1, p1) : p1;
-    v0 = lane == c ? x : v0;
-    v1 = lane + 32 == c ? x : v1;
-  } else {
-    const T u0 = fma(-x, l0, v0), u1 = fma(-x, l1, v1);
-    v0 = lane == c ? x : (lane > c ? u0 : v0);
-    v1 = lane + 32 == c ? x : (lane + 32 > c ? u1 : v1);
-  }
+  const T u0 = fma(-x, l0, v0), u1 = fma(-x, l1, v1);
+  v0 = lane == c ? x : (lane > c && l0 != T(0) ? u0 : v0);
+  v1 = lane + 32 == c ? x : (lane + 32 > c && l1 != T(0) ? u1 : v1);
 }
 
 // One warp: forward substitution of one row against the w x w (w <= NB)
@@ -82,35 +72,32 @@ __device__ __forceinline__ void solve_link(T& v0, T& v1, T& p0, T& p1,
 // row is solved again with the division itself, so special values come out
 // as the reference's v / d gives them. A full block or half block is
 // unrolled, so each link's lane and register are known at compile time.
-// KEEP_ZEROS (the fused column step's solves, whose epilogue is held
-// bitwise) keeps signed zeros as the division does, for one subtraction
-// more a link (solve_link).
-template <bool KEEP_ZEROS = false, typename T>
+// Signed zeros come out as the division gives them (solve_link), which the
+// fused column step's epilogue, held bitwise on a solve against I, needs.
+template <typename T>
 __device__ __forceinline__ void solve_row_block(T& v0, T& v1, const T* s,
                                                 const T* dv, const T* rv,
                                                 int w) {
   const int lane = threadIdx.x % 32;
   const T in0 = v0, in1 = v1;
-  T p0 = T(0), p1 = T(0);
   if (w == NB) {
 #pragma unroll
     for (int c = 0; c < NB; ++c)
-      solve_link<true, KEEP_ZEROS>(v0, v1, p0, p1, s, dv, rv, c, lane);
+      solve_link<true>(v0, v1, s, dv, rv, c, lane);
   } else if (w == HB) {
 #pragma unroll
     for (int c = 0; c < HB; ++c)
-      solve_link<true, KEEP_ZEROS>(v0, v1, p0, p1, s, dv, rv, c, lane);
+      solve_link<true>(v0, v1, s, dv, rv, c, lane);
   } else {
     for (int c = 0; c < w; ++c)
-      solve_link<true, KEEP_ZEROS>(v0, v1, p0, p1, s, dv, rv, c, lane);
+      solve_link<true>(v0, v1, s, dv, rv, c, lane);
   }
   const bool bad = (lane < w && !isfinite(v0)) || (lane + 32 < w && !isfinite(v1));
   if (__any_sync(0xffffffffu, bad)) {
     v0 = in0;
     v1 = in1;
-    p0 = p1 = T(0);
     for (int c = 0; c < w; ++c)
-      solve_link<false, KEEP_ZEROS>(v0, v1, p0, p1, s, dv, rv, c, lane);
+      solve_link<false>(v0, v1, s, dv, rv, c, lane);
   }
 }
 

@@ -14,12 +14,13 @@ The arithmetic runs in the accumulator type: f64 for f64 tiles, else f32.
 
 Each phase walks a work list grid-stride, block b taking items b, b +
 grid, ...: the wave's output blocks (:func:`wave_items`, on the shared FFMA
-main loop of ``csrc/ffma_tile.cuh``), the blocked factor's steps
-(:func:`factor_steps`: panel rows, then the trailing tiles of
-:func:`trailing_tiles`, as ``csrc/potrf_blocked.cuh`` runs them) and the
-row solves' items (:func:`solve_items`).  These lists and the shared
-memory a block (:func:`smem_bytes`) are plain functions the CPU tests
-check; the kernel refuses any other shared-memory size.
+main loop of ``csrc/ffma_tile.cuh``), the blocked factor's steps (the
+standalone POTRF's, ``csrc/potrf_blocked.cuh``, whose work lists are
+``potrf.steps``, ``potrf.panel_rows`` and ``potrf.trailing_tiles``) and the
+row solves' items (:func:`solve_items`).  The wave's and the solves' lists
+and the shared memory a block (:func:`smem_bytes`) are plain functions the
+CPU tests check; the wrapper passes the two lists' lengths and the shared
+memory to the kernel, which refuses any other.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from . import _build, potrf
 from .ref import _round, cholesky_nan
 
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+         + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _GRID_ARGS = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
 _DTYPES = (torch.float64, torch.float32)
 #: class codes of csrc/fused_column.cu (enum Cls); -1 leaves a row unrounded
@@ -65,24 +66,6 @@ def wave_items(r_tiles: int, tb: int, dtype) -> list[tuple[int, int, int]]:
     bm, bn = wave_tile(dtype)
     return [(r, m0, n0) for r in range(r_tiles) for m0 in range(0, tb, bm)
             for n0 in range(0, tb, bn)]
-
-
-def factor_steps(tb: int) -> list[tuple[int, int]]:
-    """(first column, width) of the factor's diagonal blocks; each step is
-    phase A (:func:`panel_rows`) and, but for the last, phase B
-    (:func:`trailing_tiles`), 2 tb / NB - 2 grid barriers in all."""
-    return potrf.steps(tb)
-
-
-def panel_rows(tb: int, kb: int, block: int, grid: int) -> list[int]:
-    """Rows below the diagonal block at ``kb`` that ``block`` solves."""
-    return potrf.panel_rows(tb, kb, min(NB, tb - kb), block, grid)
-
-
-def trailing_tiles(tb: int, kb: int) -> list[tuple[int, int]]:
-    """(first row, first column) of the lower 32 x 32 tiles the step at
-    ``kb`` updates, tile t going to block t % grid."""
-    return potrf.trailing_tiles(tb, kb)
 
 
 def solve_items(r_tiles: int, tb: int,
@@ -196,6 +179,8 @@ def fused_column_step(c_stack, hist, bhist, l_kk, cls_ids, *, ladder,
                  l_kk.data_ptr(), out.data_ptr(), r_tiles, k_hist, tb,
                  int(with_diag), ctypes.addressof(codes),
                  int(dt == torch.float64), smem_bytes(tb, dt),
+                 len(wave_items(r_tiles, tb, dt)),
+                 len(solve_items(r_tiles, tb, with_diag)),
                  torch.cuda.current_stream(c_stack.device).cuda_stream)
     _build.check(err, "fused_column_step")
     launches += 1

@@ -22,15 +22,15 @@ import torch
 from . import _build
 from .ref import gemm_update_ref
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _AB_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
 _C_DTYPES = (torch.float32, torch.bfloat16)
 THREADS = 256           # 16 x 16 threads a CTA (csrc/ffma_tile.cuh)
 SIDE = 16
+MICRO = (8, 4)          # values a thread (csrc/mxp_gemm.cu TM, TN)
+BM, BN = SIDE * MICRO[0], SIDE * MICRO[1]      # a tile: 128 x 64
 KS = 32                 # K columns a pipeline stage; chunks are whole stages
 STAGES = 2              # cp.async stages in shared memory
-MICRO_TILES = ((8, 4), (8, 8))     # values a thread; the kernel takes these
-MICRO = (8, 4)          # the one the wrapper launches
 TARGET_CTAS = 256       # CTAs the split aims for (132 SMs, two CTAs each)
 MIN_CHUNK = 2 * KS      # K columns a CTA takes before the split grows
 MAX_SPLIT = 8           # CTAs a cluster (portable)
@@ -38,34 +38,26 @@ MAX_SPLIT = 8           # CTAs a cluster (portable)
 launches = 0    # kernel launches since the last ops.reset_counts()
 
 
-def tile_shape(micro=MICRO) -> tuple[int, int]:
-    """(BM, BN): output rows and columns a cluster."""
-    tm, tn = micro
-    return SIDE * tm, SIDE * tn
-
-
-def tiles(m: int, n: int, micro=MICRO) -> tuple[int, int]:
+def tiles(m: int, n: int) -> tuple[int, int]:
     """Output tiles down and across an m x n output."""
-    bm, bn = tile_shape(micro)
-    return -(-m // bm), -(-n // bn)
+    return -(-m // BM), -(-n // BN)
 
 
-def tile_origin(t: int, m: int, n: int, micro=MICRO) -> tuple[int, int]:
+def tile_origin(t: int, m: int, n: int) -> tuple[int, int]:
     """(first row, first column) of tile ``t``, row by row (the kernel's
     blockIdx.x / split)."""
-    bm, bn = tile_shape(micro)
-    tn = tiles(m, n, micro)[1]
-    return (t // tn) * bm, (t % tn) * bn
+    tn = tiles(m, n)[1]
+    return (t // tn) * BM, (t % tn) * BN
 
 
-def split_for(m: int, n: int, k: int, micro=MICRO,
+def split_for(m: int, n: int, k: int,
               split: int | None = None) -> tuple[int, int]:
     """(split, chunk): CTAs a tile and K columns a CTA.  Unless ``split``
     is given, enough CTAs for TARGET_CTAS over all tiles, but no chunk
     below MIN_CHUNK and at most MAX_SPLIT; chunks are whole KS-column
     stages and the last CTA's is not empty."""
     if split is None:
-        tm, tn = tiles(m, n, micro)
+        tm, tn = tiles(m, n)
         split = max(1, min(MAX_SPLIT, -(-TARGET_CTAS // (tm * tn)),
                            -(-k // MIN_CHUNK)))
     while True:
@@ -80,37 +72,31 @@ def chunk_bounds(k: int, split: int, chunk: int) -> list[tuple[int, int]]:
     return [(r * chunk, min(k, (r + 1) * chunk)) for r in range(split)]
 
 
-def share_rows(rank: int, split: int, micro=MICRO) -> range:
+def share_rows(rank: int, split: int) -> range:
     """Rows of a tile whose sums rank ``rank`` writes."""
-    bm = tile_shape(micro)[0]
-    return range(rank * bm // split, (rank + 1) * bm // split)
+    return range(rank * BM // split, (rank + 1) * BM // split)
 
 
-def geometry(m: int, n: int, k: int, micro=MICRO,
-             split: int | None = None) -> dict:
+def geometry(m: int, n: int, k: int) -> dict:
     """The launch: micro-tile, split, chunk, CTAs and shared memory a CTA
     (the stages, or the partial sums after them if larger)."""
-    split, chunk = split_for(m, n, k, micro, split)
-    tm, tn = tiles(m, n, micro)
-    return {"micro": tuple(micro), "split": split, "chunk": chunk,
-            "ctas": tm * tn * split, "smem": smem_bytes(micro, 4)}
+    split, chunk = split_for(m, n, k)
+    tm, tn = tiles(m, n)
+    return {"micro": MICRO, "split": split, "chunk": chunk,
+            "ctas": tm * tn * split, "smem": smem_bytes(4)}
 
 
-def smem_bytes(micro=MICRO, itemsize: int = 4) -> int:
+def smem_bytes(itemsize: int = 4) -> int:
     """Shared memory a CTA for operands of ``itemsize`` bytes: STAGES
     stages of BM + BN rows of KS + one 16-byte vector, or the BM x (BN +
     16) f32 partial sums, whichever is larger."""
-    bm, bn = tile_shape(micro)
-    stages = STAGES * (bm + bn) * (KS + 16 // itemsize) * itemsize
-    return max(stages, bm * (bn + 16) * 4)
+    stages = STAGES * (BM + BN) * (KS + 16 // itemsize) * itemsize
+    return max(stages, BM * (BN + 16) * 4)
 
 
-def mxp_gemm_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
-                    micro=MICRO, split: int | None = None) -> torch.Tensor:
-    """C - A @ B^T with f32 accumulation.  a: [M,K], b: [N,K], c: [M,N].
-    ``micro`` and ``split`` choose another launch geometry of the same
-    kernel (for timing; the result is the same up to summation order)."""
-    global launches
+def mxp_gemm_update(c: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """C - A @ B^T with f32 accumulation.  a: [M,K], b: [N,K], c: [M,N]."""
     m, k = a.shape
     n, kb = b.shape
     if kb != k or tuple(c.shape) != (m, n):
@@ -122,14 +108,23 @@ def mxp_gemm_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
             or c.dtype not in _C_DTYPES:
         raise TypeError(f"mxp_gemm_update: no kernel for a {a.dtype}, "
                         f"b {b.dtype}, c {c.dtype}")
-    split, chunk = split_for(m, n, k, micro, split)
+    return _launch(c, a, b, *split_for(m, n, k))
+
+
+def _launch(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, split: int,
+            chunk: int) -> torch.Tensor:
+    """The kernel at ``split`` CTAs a tile and ``chunk`` K columns a CTA
+    (:func:`split_for`); besides the wrapper's own, only the geometry
+    benchmark (benchmarks/torch_gemm_geometry.py) passes another split."""
+    global launches
+    (m, k), n = a.shape, b.shape[0]
     out = torch.empty_like(c)
     fn = _build.function("mxp_gemm", "mxp_gemm_update", _ARGS)
     with torch.cuda.device(c.device):
         err = fn(c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
                  m, n, k, _build.DTYPE_CODES[a.dtype],
-                 _build.DTYPE_CODES[c.dtype], micro[0], micro[1], split,
-                 chunk, torch.cuda.current_stream(c.device).cuda_stream)
+                 _build.DTYPE_CODES[c.dtype], split, chunk,
+                 torch.cuda.current_stream(c.device).cuda_stream)
     _build.check(err, "mxp_gemm_update")
     launches += 1
     return out

@@ -5,10 +5,12 @@ The wrappers ``repro_torch.kernels.potrf``, ``trsm``, ``syrk``,
 ``mxp_gemm`` and ``fused_column`` compute each launch's geometry as plain
 functions (rows a block, blocks, shared memory a block, the cooperative
 grid, the split of K over a cluster, each phase's work list) and the CUDA
-sources refuse any other, so these checks hold what the card runs: the shared memory
-stays within a block's 232,448 bytes (hopper-kernels guide, section 1) at
-every size the wrappers accept, and each row, column and tile of the work
-is covered exactly once.
+sources refuse any other (for the fused step: its shared memory and the
+lengths of its wave's and its solves' work lists, whose order the kernel
+decodes as these functions list it), so these checks hold what the card
+runs: the shared memory stays within a block's 232,448 bytes
+(hopper-kernels guide, section 1) at every size the wrappers accept, and
+each row, column and tile of the work is covered exactly once.
 """
 import numpy as np
 import pytest
@@ -77,13 +79,15 @@ def test_potrf_every_lower_entry_once(n, grid):
     assert not np.triu(count, 1).any()
 
 
-@pytest.mark.parametrize("n", RAGGED + [2048])
-@pytest.mark.parametrize("grid", ["needed", 1, 132])
+@pytest.mark.parametrize("n", RAGGED + [1024, 2048])
+@pytest.mark.parametrize("grid", ["needed", 1, 132, 264])
 def test_potrf_trailing_tiles_once(n, grid):
     """Each step's trailing update writes every lower entry of the trailing
     matrix once (TT x TT tiles, block t % grid taking tile t, only entries
     on or below the diagonal stored), and the panel's rows are solved once
-    each (a warp a row)."""
+    each (a warp a row). The fused column step runs the same steps on its
+    diagonal tile (tb up to 1024) over its cooperative grid (264 blocks at
+    tb = 512 on 132 SMs)."""
     grid = potrf.blocks_needed(n) if grid == "needed" else grid
     tt = potrf.TT
     for kb, width in potrf.steps(n):
@@ -207,30 +211,28 @@ def test_syrk_share_rows_partition_the_block(split):
 GEMM_SIZES = [1, 31, 33, 63, 64, 65, 100, 128, 129, 257, 512, 513, 1000]
 
 
-@pytest.mark.parametrize("micro", mxp_gemm.MICRO_TILES)
-@pytest.mark.parametrize("m,n", [(m, n) for m in GEMM_SIZES[::2]
-                                 for n in GEMM_SIZES[1::2]] + [(512, 512)])
-def test_gemm_every_output_tile_once(m, n, micro):
+@pytest.mark.parametrize("m", GEMM_SIZES)
+@pytest.mark.parametrize("n", GEMM_SIZES)
+def test_gemm_every_output_tile_once(m, n):
     """The kernel's tile t = blockIdx.x / split covers rows and columns
     from tile_origin; every entry of the output lies in exactly one tile."""
-    bm, bn = mxp_gemm.tile_shape(micro)
-    tm, tn = mxp_gemm.tiles(m, n, micro)
+    bm, bn = mxp_gemm.BM, mxp_gemm.BN
+    tm, tn = mxp_gemm.tiles(m, n)
     cover = np.zeros((tm * bm, tn * bn), int)
     for t in range(tm * tn):
-        r0, c0 = mxp_gemm.tile_origin(t, m, n, micro)
+        r0, c0 = mxp_gemm.tile_origin(t, m, n)
         assert r0 < m and c0 < n
         cover[r0:r0 + bm, c0:c0 + bn] += 1
     assert (cover[:m, :n] == 1).all()
 
 
-@pytest.mark.parametrize("micro", mxp_gemm.MICRO_TILES)
 @pytest.mark.parametrize("k", GEMM_SIZES + [4096])
-def test_gemm_every_k_column_in_one_chunk(k, micro):
+def test_gemm_every_k_column_in_one_chunk(k):
     """Every K column lies in exactly one rank's chunk, and no chunk is
     empty, at the wrapper's split for several output shapes and at every
     forced split 1-8; the conditions csrc/mxp_gemm.cu checks hold."""
-    splits = {mxp_gemm.split_for(m, m, k, micro) for m in (1, 100, 512, 1000)}
-    splits |= {mxp_gemm.split_for(512, 512, k, micro, s) for s in range(1, 9)}
+    splits = {mxp_gemm.split_for(m, m, k) for m in (1, 100, 512, 1000)}
+    splits |= {mxp_gemm.split_for(512, 512, k, s) for s in range(1, 9)}
     for split, chunk in splits:
         assert 1 <= split <= mxp_gemm.MAX_SPLIT and chunk % mxp_gemm.KS == 0
         cols = np.zeros(k, int)
@@ -247,34 +249,29 @@ def test_gemm_geometry_at_the_main_path_tile():
     geo = mxp_gemm.geometry(512, 512, 512)
     assert geo["micro"] == (8, 4) and geo["split"] == 8
     assert geo["chunk"] == 64 and geo["ctas"] == 256 <= 2 * 132
-    assert mxp_gemm.split_for(512, 512, 512, (8, 8)) == (8, 64)
     assert [mxp_gemm.split_for(512, 512, k)[0] for k in (1, 31, 64)] == [1] * 3
 
 
-@pytest.mark.parametrize("micro", mxp_gemm.MICRO_TILES)
 @pytest.mark.parametrize("split", range(1, 9))
-def test_gemm_share_rows_partition_the_tile(split, micro):
-    bm = mxp_gemm.tile_shape(micro)[0]
+def test_gemm_share_rows_partition_the_tile(split):
+    bm = mxp_gemm.BM
     rows = np.zeros(bm, int)
     for rank in range(split):
-        r = mxp_gemm.share_rows(rank, split, micro)
+        r = mxp_gemm.share_rows(rank, split)
         assert len(r) >= bm // split
         rows[r.start:r.stop] += 1
     assert (rows == 1).all()
 
 
-@pytest.mark.parametrize("micro", mxp_gemm.MICRO_TILES)
 @pytest.mark.parametrize("itemsize", [4, 2, 1])
-def test_gemm_shared_memory_fits(micro, itemsize):
+def test_gemm_shared_memory_fits(itemsize):
     """The stages of every operand type, or the f32 partial sums, within a
-    block's limit at every size (the geometry does not depend on M, N, K)
-    and, for the wrapper's 8 x 4, two CTAs within the SM's 228 KiB."""
-    smem = mxp_gemm.smem_bytes(micro, itemsize)
-    bm, bn = mxp_gemm.tile_shape(micro)
-    assert smem >= bm * (bn + 16) * 4
+    block's limit at every size (the geometry does not depend on M, N, K),
+    two CTAs within the SM's 228 KiB."""
+    smem = mxp_gemm.smem_bytes(itemsize)
+    assert smem >= mxp_gemm.BM * (mxp_gemm.BN + 16) * 4
     assert smem <= SMEM_LIMIT
-    if micro == mxp_gemm.MICRO:
-        assert 2 * (smem + 1024) <= 228 * 1024
+    assert 2 * (smem + 1024) <= 228 * 1024
 
 
 # --------------------------------------------------------------------------
@@ -295,34 +292,6 @@ def test_fused_wave_covers_every_entry_once(tb, dtype):
         assert m0 < tb and n0 < tb
         cover[r, m0:m0 + bm, n0:n0 + bn] += 1
     assert (cover[:, :tb, :tb] == 1).all()
-
-
-@pytest.mark.parametrize("grid", [1, 7, 132, 264])
-@pytest.mark.parametrize("tb", FUSED_TB)
-def test_fused_factor_covers_every_lower_entry_once(tb, grid):
-    """Each step of the in-launch factor: the panel rows below the diagonal
-    block once each (a warp a row), and every lower entry of the trailing
-    matrix once (its 32 x 32 tiles, tile t to block t % grid)."""
-    steps = fused_column.factor_steps(tb)
-    assert len(steps) == tb // fused_column.NB
-    assert sum(w for _, w in steps) == tb
-    for kb, width in steps:
-        p0 = kb + width
-        rows = np.zeros(tb, int)
-        for b in range(grid):
-            for i in fused_column.panel_rows(tb, kb, b, grid):
-                rows[i] += 1
-        assert (rows[p0:] == 1).all() and not rows[:p0].any()
-        count = np.zeros((tb, tb), int)
-        tiles = fused_column.trailing_tiles(tb, kb)
-        for b in range(grid):
-            for r0, c0 in tiles[b::grid]:
-                count[r0:r0 + 32, c0:c0 + 32] += 1
-        want = np.zeros((tb, tb), int)
-        want[p0:, p0:] = np.tril(np.ones((tb - p0, tb - p0), int))
-        assert (np.tril(count) == want).all()
-    # two grid barriers a step but the last: 14 at tb = 512
-    assert 2 * len(steps) - 2 == 2 * tb // 64 - 2
 
 
 @pytest.mark.parametrize("with_diag", [True, False])
