@@ -33,15 +33,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``eps_target`` precision plan and factored through ``plan(...).compile()``
    with the hand-written kernels (``use_pallas=True``) in f32; then solve,
    logdet, and the checks of the launch counts, the transfers and the
-   accuracy against ``torch.linalg.cholesky`` in f64.  The same matrix is
-   then factored with ``fuse_columns=True``: one fused launch per column
-   step and no per-op launch, under the same checks;
+   accuracy against ``torch.linalg.cholesky`` in f64; ``volume()`` must
+   equal the schedule's bytes and op counts, and
+   ``simulate(HW["h100-pcie"])``'s makespan is logged beside the factor's
+   seconds as a model reading of a PCIe datasheet preset, not a
+   measurement.  The same matrix is then factored with
+   ``fuse_columns=True``: one fused launch per column step and no per-op
+   launch, under the same checks;
 5. mixed precision: a Kac-Murdock-Szego matrix factored in f64 through the
    fused path on the ``gpu-scaled`` ladder (at least three classes, the
    scaled FP8 one among them), held against ``torch.linalg.cholesky`` and,
    tile by tile, against the unfused port; the same plan computed in f32
    must fail that tile check;
-6. LM serving, qwen3-14b at published widths and depth (bf16 activations,
+6. geospatial (``--geo-n``, 16384): the paper's workload, a Matérn
+   covariance (nu = 0.5, weak correlation, Morton-ordered seeded
+   locations) built on the card, planned on the ``gpu`` ladder at
+   eps_target 1e-6 (unscaled ``f8e4m3`` tiles and at least three classes
+   required), factored in f64 through the fused kernel (``nt`` launches,
+   no per-op launch) and unfused, held tile by tile against each other (a
+   plan with its least f32 tile stored as e4m3 must fail that check, and
+   its own fused and unfused factors must pass it)
+   and both against ``torch.linalg.cholesky``; the log-likelihood of four
+   seeded observations through the fused solver against the f64 factor's
+   (the control's solver must fail that check); the
+   KL divergence at eps_target 1e-4, 1e-6 and 1e-8, whose order must be
+   the reference's; the fused f64 step at R = K = nt / 2, timed;
+7. LM serving, qwen3-14b at published widths and depth (bf16 activations,
    f32 parameters from ``--seed``, the flash flag on): the flash kernels
    against their plain version at the prefill shape and nine others, each
    output row at its own scale (a zeroed output and a dropped KV tile must
@@ -56,12 +73,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt; both logit checks must reject two faults (the flash kernel
    without its causal mask, the attention output dropped); decode tokens/s
    is the median of six windows;
-7. the kernels line (JSON) and the last line,
+8. the kernels line (JSON) and the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
-``chiprun_out/chip_smoke.json`` as well.  ``--n`` and ``--tb`` cut the
-Cholesky size for a quick run; the model runs at full width and depth.
+``chiprun_out/chip_smoke.json`` as well.  ``--n``, ``--mxp-n``, ``--geo-n``
+and ``--tb`` cut the Cholesky sizes for a quick run; the model runs at
+full width and depth.
 """
 from __future__ import annotations
 
@@ -74,6 +92,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -908,6 +927,22 @@ def main_path(a: torch.Tensor, lref: torch.Tensor, tb: int, dev, seed: int,
         f"{io['executed_d2h_bytes']} B (f32 tiles); schedule (class "
         f"precision) loads_bytes {sched.loads_bytes()} stores_bytes "
         f"{sched.stores_bytes()}")
+    # the analytics' exact volume report is the schedule's own accounting
+    vol = solver.volume()
+    want_vol = {"c2g_bytes": sched.loads_bytes(),
+                "g2c_bytes": sched.stores_bytes(),
+                "total_bytes": sched.loads_bytes() + sched.stores_bytes(),
+                "loads": sched.count(OpKind.LOAD),
+                "stores": sched.count(OpKind.STORE),
+                "allocs": sched.count(OpKind.ALLOC),
+                "nt": n // tb, "tb": tb}
+    require({k: vol[k] for k in want_vol} == want_vol,
+            f"volume() {vol} does not match the schedule {want_vol}")
+    sim = solver.simulate(repro_torch.HW["h100-pcie"])
+    log(f"{tag}: volume() equals the schedule's bytes and op counts; model "
+        f"reading, not a measurement: simulate(HW['h100-pcie']) makespan "
+        f"{sim.makespan:.3f}s on that PCIe datasheet preset (this card is "
+        f"SXM) beside the measured factor {factor_s:.3f}s")
 
     # accuracy against the f64 factor on the card. Every tile op runs in
     # f32 (f64-class tiles are held in the f32 compute dtype), and the plan
@@ -954,9 +989,62 @@ def main_path(a: torch.Tensor, lref: torch.Tensor, tb: int, dev, seed: int,
             "peak_mib_beyond_input": peak_mib,
             "tflops_n3_over_3": n ** 3 / 3 / factor_s / 1e12,
             "launches": launches, "schedule_counts": want,
-            "transfers": io, "rel_factor_err": rel_l, "bound": bound_l,
+            "transfers": io, "volume": vol,
+            "model_makespan_h100_pcie_preset_s": sim.makespan,
+            "rel_factor_err": rel_l, "bound": bound_l,
             "solve_s": solve_s, "solve_residual": res,
             "logdet_err_per_n": ld_err, "plan_compile_s": plan_s}
+
+
+def _dense_factor(solver, n: int) -> torch.Tensor:
+    """tril L of a factored solver's host store, dense on the card."""
+    tiles = solver.tiles.to(solver.device)
+    return torch.tril(tiles.permute(0, 2, 1, 3).reshape(n, n))
+
+
+def _factor_on_card(cfg, n: int, a: torch.Tensor, dev):
+    """Plan, compile and factor ``a`` under ``cfg``: (solver, dense L,
+    seconds of the factor, this factor's launches)."""
+    import repro_torch
+    solver = repro_torch.plan(n, cfg).compile(device=dev)
+    repro_torch.reset_counts()
+    t0 = time.perf_counter()
+    solver.factor(a, materialize=False)
+    secs = time.perf_counter() - t0
+    return solver, _dense_factor(solver, n), secs, repro_torch.launch_counts()
+
+
+def _tile_check(l, lu, plan, tb: int):
+    """Tile by tile against the unfused port: the same ops and the same
+    roundings in another accumulation order (the fused kernel against
+    cuBLAS/cuSOLVER in f64).  A tile of class c differs by that order, or
+    by one quantum of c where the order moved a value across a rounding
+    boundary: max(1e-12, 4 EPS[c]) max|L|, the reference's _tol
+    (tests/test_kernel_numerics.py).  A flip also reaches the tiles that
+    read the flipped one.  The order differences are ~1e-14 of a value, so
+    a flip is likely only in f32 tiles (about one in 10^7 f32 values
+    against one in 10^10 f16 values), and each later tile is allowed FLIPS
+    f32 quanta of the largest f32 tile: FLIPS 4 EPS[f32] max|L_f32 tile|.
+    Returns the worst tile's error over its allowance (at most 1 passes),
+    the max tile error / max|L| by class, and that f32 quantum."""
+    nt = plan.nt
+    scale = float(lu.abs().max())
+
+    def blk(x, i, j):
+        return x[i * tb:(i + 1) * tb, j * tb:(j + 1) * tb]
+
+    flip = max([4 * EPS["f32"] * float(blk(lu, i, j).abs().max())
+                for i in range(nt) for j in range(i + 1)
+                if plan.name(i, j) == "f32"], default=0.0)
+    worst, by_class = 0.0, {}
+    for i in range(nt):
+        for j in range(i + 1):
+            cls = plan.name(i, j)
+            d = float((blk(l, i, j) - blk(lu, i, j)).abs().max())
+            by_class[cls] = max(by_class.get(cls, 0.0), d / scale)
+            allow = max(1e-12, 4 * EPS[cls]) * scale + FLIPS * flip
+            worst = max(worst, d / allow)
+    return worst, by_class, flip
 
 
 def mxp_fused(n: int, tb: int, dev) -> dict:
@@ -981,23 +1069,15 @@ def mxp_fused(n: int, tb: int, dev) -> dict:
             and hist.get("f8e4m3s", 0) > 0,
             f"the plan {hist} needs three classes, f8e4m3s among them")
 
-    def factor(c):
-        solver = repro_torch.plan(n, c).compile(device=dev)
-        repro_torch.reset_counts()
-        t0 = time.perf_counter()
-        solver.factor(a, materialize=False)
-        secs = time.perf_counter() - t0
-        tiles = solver.tiles.to(dev)
-        lo = tiles.permute(0, 2, 1, 3).reshape(n, n)
-        return torch.tril(lo), secs, repro_torch.launch_counts()
-
-    lf, fused_s, launches = factor(cfg)
+    _, lf, fused_s, launches = _factor_on_card(cfg, n, a, dev)
     want = {**dict.fromkeys(launches, 0), "fused_column_step": nt}
     require(launches == want, f"mxp launches {launches} != {want}")
-    lu, unfused_s, _ = factor(dataclasses.replace(cfg, fuse_columns=False))
+    _, lu, unfused_s, _ = _factor_on_card(
+        dataclasses.replace(cfg, fuse_columns=False), n, a, dev)
     # the control: the same plan with every tile op in f32, so the f64
     # tiles carry f32 roundoff; the tile check below must reject it
-    lc, _, _ = factor(dataclasses.replace(cfg, compute_dtype=torch.float32))
+    _, lc, _, _ = _factor_on_card(
+        dataclasses.replace(cfg, compute_dtype=torch.float32), n, a, dev)
     lref = torch.linalg.cholesky(a)
 
     # the plan's own guarantee, held as the reference's tests hold it
@@ -1009,39 +1089,10 @@ def mxp_fused(n: int, tb: int, dev) -> dict:
     kappa = ((1 + rho) / (1 - rho)) ** 2
     forward = float((lf - lref).abs().max() / lref.abs().max())
 
-    # tile by tile against the unfused port: the same ops and the same
-    # roundings in another accumulation order (the fused kernel against
-    # cuBLAS/cuSOLVER in f64).  A tile of class c differs by that order, or
-    # by one quantum of c where the order moved a value across a rounding
-    # boundary: max(1e-12, 4 EPS[c]) max|L|, the reference's _tol
-    # (tests/test_kernel_numerics.py).  A flip also reaches the tiles that
-    # read the flipped one.  The order differences are ~1e-14 of a value,
-    # so a flip is likely only in f32 tiles (about one in 10^7 f32 values
-    # against one in 10^10 f16 values), and each later tile is allowed
-    # FLIPS f32 quanta of the largest f32 tile: FLIPS 4 EPS[f32]
-    # max|L_f32 tile|.  The f32 control must fail this check.
-    scale = float(lu.abs().max())
-
-    def blk(l, i, j):
-        return l[i * tb:(i + 1) * tb, j * tb:(j + 1) * tb]
-
-    flip = max([4 * EPS["f32"] * float(blk(lu, i, j).abs().max())
-                for i in range(nt) for j in range(i + 1)
-                if cfg.plan.name(i, j) == "f32"], default=0.0)
-
-    def tile_check(l):
-        worst, by_class = 0.0, {}
-        for i in range(nt):
-            for j in range(i + 1):
-                cls = cfg.plan.name(i, j)
-                d = float((blk(l, i, j) - blk(lu, i, j)).abs().max())
-                by_class[cls] = max(by_class.get(cls, 0.0), d / scale)
-                allow = max(1e-12, 4 * EPS[cls]) * scale + FLIPS * flip
-                worst = max(worst, d / allow)
-        return worst, by_class
-
-    worst, by_class = tile_check(lf)
-    ctrl, ctrl_by_class = tile_check(lc)
+    # tile by tile against the unfused port (_tile_check); the f32 control
+    # must fail this check
+    worst, by_class, flip = _tile_check(lf, lu, cfg.plan, tb)
+    ctrl, ctrl_by_class, _ = _tile_check(lc, lu, cfg.plan, tb)
     log(f"mxp: fused factor {fused_s:.3f}s ({launches['fused_column_step']} "
         f"launches), unfused {unfused_s:.3f}s; ||A - LL^T||/||A|| = "
         f"{backward:.3e} (bound {eps_target:.0e}); max|L - chol64(A)|/max|L| "
@@ -1067,6 +1118,226 @@ def mxp_fused(n: int, tb: int, dev) -> dict:
             "fused_vs_unfused_by_class": by_class,
             "f32_control_tile_ratio": ctrl,
             "f32_control_by_class": ctrl_by_class}
+
+
+# The geospatial phase's bound on the log-likelihood of four observations
+# through the fused MxP solver, the largest relative difference to the f64
+# factor's, set between the sound readings and the fault's: the control's
+# solver (its least f32 tile stored as e4m3).  Over seeds 0-2 at n = 16384
+# (benchmarks/torch_geo_bounds.py, NVIDIA H100 80GB HBM3, 700 W) the sound
+# readings were 1.52e-8 to 3.27e-8 and the fault's 1.34e-5 to 2.75e-5: the
+# bound is 31 times the worst sound reading and 13 times below the least
+# fault.
+LOGLIK_BOUND = 1e-6
+GEO_EPS = (1e-4, 1e-6, 1e-8)
+
+
+def geo(n: int, tb: int, dev, seed: int, card: str) -> dict:
+    """The paper's workload end to end on the card: a weakly correlated
+    Matérn covariance (nu = 0.5, beta = 0.02627, Morton-ordered locations)
+    on the ``gpu`` ladder at eps_target 1e-6, whose plan places unscaled
+    e4m3 tiles; its fused f64 factor (the fused kernel's f64 variant and
+    its unscaled-e4m3 epilogue) against the unfused one tile by tile, with
+    a control that must fail; both against the f64 factor; the KL
+    divergence of Fig. 10 and the log-likelihood of seeded observations."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.core.precision import PrecisionPlan
+    from repro_torch.geo import (gaussian_loglik, generate_locations,
+                                 kl_divergence_mxp, matern_covariance)
+    from repro_torch.geo.matern import BETA_WEAK
+    from repro_torch.kernels import fused_column as fc
+    eps_target = 1e-6
+    nt = n // tb
+    t0 = time.perf_counter()
+    cov = matern_covariance(generate_locations(n, seed), sigma2=1.0,
+                            beta=BETA_WEAK, nu=0.5, nugget=1e-6, device=dev)
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, policy="v3", ladder="gpu", eps_target=eps_target,
+        use_pallas=True, fuse_columns=True).specialize(cov)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    plan = cfg.plan
+    hist = plan.histogram()
+    log(f"geo [{card}]: n={n} tb={tb} nt={nt} Matern nu=0.5 beta="
+        f"{BETA_WEAK} eps_target={eps_target} ladder gpu: precision "
+        f"histogram {hist} (covariance and plan {setup_s:.2f}s)")
+    require(hist.get("f8e4m3", 0) > 0 and sum(v > 0 for v in hist.values())
+            >= 3, f"the plan {hist} needs three classes, f8e4m3 among them")
+
+    fused_solver, lf, fused_s, launches = _factor_on_card(cfg, n, cov, dev)
+    want = {**dict.fromkeys(launches, 0), "fused_column_step": nt}
+    require(launches == want, f"geo launches {launches} != {want}")
+    _, lu, unfused_s, unfused_launches = _factor_on_card(
+        dataclasses.replace(cfg, fuse_columns=False), n, cov, dev)
+    e4m3 = plan.ladder.index("f8e4m3")
+
+    def blk(x, t):
+        return x[t[0] * tb:(t[0] + 1) * tb, t[1] * tb:(t[1] + 1) * tb]
+
+    def pick(pick_by, cls):
+        """The off-diagonal tile of class ``cls`` with the largest (max)
+        or least (min) max|A|."""
+        return pick_by(((i, j) for i in range(nt) for j in range(i)
+                        if plan.name(i, j) == cls),
+                       key=lambda t: float(blk(cov, t).abs().max()))
+
+    def reclassified(t, cls):
+        classes = plan.classes.copy()
+        classes[t] = classes[t[::-1]] = cls
+        return dataclasses.replace(cfg, plan=PrecisionPlan(
+            classes, plan.ladder, plan.eps_target))
+
+    # what the e4m3 tiles hold: their entries against e4m3's smallest
+    # subnormal, 2^-9 (half of it rounds to zero)
+    e4m3_tiles = [(i, j) for i in range(nt) for j in range(i)
+                  if plan.classes[i, j] == e4m3]
+    e4m3_amax = max(float(blk(cov, t).abs().max()) for t in e4m3_tiles)
+    e4m3_nonzero = sum(int(blk(lf, t).count_nonzero()) for t in e4m3_tiles)
+    # the control that must fail the tile check: the f32 tile with the
+    # least entries stored as unscaled e4m3, whose values then lie inside
+    # e4m3's range; its own fused and unfused factors must agree.  One
+    # e4m3 tile stored as f16 (the other direction) is logged: its entries
+    # lie below e4m3's quantum at zero, and it moves the other tiles by
+    # ~1e-14 of max|L|, which no sound check of this order can see
+    ca, cb = pick(min, "f32"), pick(max, "f8e4m3")
+    ctrl_cfg = reclassified(ca, e4m3)
+    ctrl_solver, lc, _, _ = _factor_on_card(ctrl_cfg, n, cov, dev)
+    _, lcu, _, _ = _factor_on_card(
+        dataclasses.replace(ctrl_cfg, fuse_columns=False), n, cov, dev)
+    up_solver, lup, _, _ = _factor_on_card(
+        reclassified(cb, plan.ladder.index("f16")), n, cov, dev)
+    worst, by_class, flip = _tile_check(lf, lu, plan, tb)
+    ctrl, ctrl_by_class, _ = _tile_check(lc, lu, plan, tb)
+    ctrl_self, _, _ = _tile_check(lc, lcu, ctrl_cfg.plan, tb)
+    ctrl_nonzero = int(blk(lc, ca).count_nonzero())
+    up, up_by_class, _ = _tile_check(lup, lu, plan, tb)
+    log(f"geo [{card}]: fused factor {fused_s:.3f}s ({nt} fused f64 "
+        f"launches, no per-op launch), unfused {unfused_s:.3f}s (launches "
+        f"{unfused_launches})")
+    log(f"geo: the {len(e4m3_tiles)} f8e4m3 tiles: max|A| {e4m3_amax:.3e} "
+        f"(e4m3's smallest subnormal {2.0 ** -9:.3e}); nonzero values of "
+        f"the fused factor there: {e4m3_nonzero}")
+    log(f"geo: fused vs unfused, worst tile error / (max(1e-12, 4 EPS[class]) "
+        f"max|L| + {FLIPS} x {flip:.3e}) = {worst:.3e} (bound 1); by class "
+        f"{by_class}")
+    log(f"geo: control, f32 tile {ca} (max|A| "
+        f"{float(blk(cov, ca).abs().max()):.3e}) stored as f8e4m3, the same "
+        f"ratio = {ctrl:.3e} (must exceed 1); by class {ctrl_by_class}; its "
+        f"fused vs its unfused factor {ctrl_self:.3e} (bound 1), "
+        f"{ctrl_nonzero} nonzero e4m3 values in that tile")
+    log(f"geo: f8e4m3 tile {cb} stored as f16, the same ratio = {up:.3e}; "
+        f"by class {up_by_class}")
+    require(worst <= 1.0, f"geo fused vs unfused {worst}")
+    require(not ctrl <= 1.0, f"geo tile check passes the control ({ctrl})")
+    require(ctrl_self <= 1.0 and ctrl_nonzero > 0,
+            f"geo control fused vs unfused {ctrl_self}, {ctrl_nonzero} "
+            f"nonzero e4m3 values")
+
+    # both factors against the f64 factor: the plan's own guarantee,
+    # ||A - L L^T||_F / ||A||_F <= eps_target, and the forward error to
+    # first order within kappa_2(A) eps_target, kappa_2 bounded above by
+    # ||A||_inf ||A^-1||_inf (A symmetric)
+    lref = torch.linalg.cholesky(cov)
+    kappa = float(cov.abs().sum(1).max()
+                  * torch.cholesky_inverse(lref).abs().sum(1).max())
+    acc = {}
+    for name, l in (("fused", lf), ("unfused", lu)):
+        backward = float(torch.linalg.norm(l @ l.T - cov)
+                         / torch.linalg.norm(cov))
+        forward = float((l - lref).abs().max() / lref.abs().max())
+        acc[name] = {"backward_err": backward, "forward_err": forward}
+        log(f"geo: {name} ||A - LL^T||/||A|| = {backward:.3e} (bound "
+            f"{eps_target:.0e}); max|L - chol64(A)|/max|L| = {forward:.3e} "
+            f"(bound kappa eps = {kappa * eps_target:.2e})")
+        require(math.isfinite(backward) and backward <= eps_target,
+                f"geo {name} backward error {backward}")
+        require(math.isfinite(forward) and forward <= kappa * eps_target,
+                f"geo {name} forward error {forward}")
+    del lu, lc, lcu, lup
+
+    # the log-likelihood of k = 4 seeded observations of the field
+    # (y = L64 z) through the fused MxP solver, against the f64 factor's;
+    # the control's solver must read above the bound
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    y = lref @ torch.randn(n, 4, generator=g, device=dev,
+                           dtype=torch.float64)
+    ll64 = gaussian_loglik(lref, y)
+
+    def rel(solver):
+        ll = gaussian_loglik(solver, y)
+        return float(np.max(np.abs(ll - ll64) / np.abs(ll64)))
+
+    ll_rel, ctrl_rel, up_rel = (rel(fused_solver), rel(ctrl_solver),
+                                rel(up_solver))
+    log(f"geo: log-likelihood (k=4) through the fused MxP solver, max "
+        f"relative difference to the f64 factor's {ll_rel:.3e} (bound "
+        f"{LOGLIK_BOUND:.0e}); the control's solver (f32 tile as e4m3) "
+        f"{ctrl_rel:.3e} (must exceed); e4m3 tile as f16 {up_rel:.3e}")
+    require(math.isfinite(ll_rel) and ll_rel <= LOGLIK_BOUND,
+            f"geo log-likelihood {ll_rel}")
+    require(not ctrl_rel <= LOGLIK_BOUND,
+            f"geo log-likelihood check passes the control ({ctrl_rel})")
+    del lf, lref, y, fused_solver, ctrl_solver, up_solver
+
+    # the KL divergence of Fig. 10, on the card, and the reference's order
+    kl = {}
+    for eps in GEO_EPS:
+        t0 = time.perf_counter()
+        res = kl_divergence_mxp(cov, tb, eps, ladder="gpu", device=dev)
+        res["seconds"] = time.perf_counter() - t0
+        kl[eps] = res
+        log(f"geo [{card}]: KL(eps_target={eps:.0e}) = {res['kl']:.6e} "
+            f"(|KL| {res['abs_kl']:.3e}), histogram "
+            f"{res['precision_histogram']}, two factors {res['seconds']:.2f}s")
+    require(kl[1e-8]["abs_kl"] <= kl[1e-4]["abs_kl"],
+            f"geo KL order: |KL(1e-8)| {kl[1e-8]['abs_kl']} > |KL(1e-4)| "
+            f"{kl[1e-4]['abs_kl']}")
+    del cov
+
+    # the fused step's f64 launch site at this path's middle column,
+    # R = K = nt / 2, against its plain version, timed beside its bound
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    r = nt // 2
+    args = _column(r, r, tb, True, torch.float64, dev, g)
+    ids = [LADDER.index("f32")] * r
+    kw = dict(ladder=LADDER, with_diag=True)
+    got = fc.fused_column_step(*args, ids, **kw)
+    ratio = _row_ratio(got, fc.fused_column_step_ref(*args, ids, **kw),
+                       _fused_tol("f32", tb, torch.float64))
+    require(ratio <= 1.0, f"geo fused step R=K={r}: row error ratio {ratio}")
+    # a launch of some 6 ms, which CUDA events time as the device does; the
+    # profiler has once read no device time for it after the phases above
+    step = {"R": r, "K": r, "row_ratio": ratio,
+            "ms": time_ms(lambda: fc.fused_column_step(*args, ids, **kw), 3,
+                          1),
+            "device_ms": device_ms(lambda: fc.fused_column_step(
+                *args, ids, **kw), 3),
+            "plain_ms": time_ms(lambda: fc.fused_column_step_ref(
+                *args, ids, **kw), 3, 1),
+            **_fused_cost(r, r, tb, True, 8, PEAK_F64_FLOPS)}
+    log(f"geo [{card}]: fused step f64 R=K={r}: " + json.dumps(step))
+    return {"n": n, "tb": tb, "nt": nt, "eps_target": eps_target,
+            "beta": BETA_WEAK, "nu": 0.5, "precision_histogram": hist,
+            "setup_s": setup_s, "fused_factor_s": fused_s,
+            "unfused_factor_s": unfused_s, "launches": launches,
+            "unfused_launches": unfused_launches,
+            "fused_vs_unfused_tile_ratio": worst,
+            "fused_vs_unfused_by_class": by_class, "f32_flip": flip,
+            "f8e4m3_tiles": len(e4m3_tiles), "f8e4m3_max_abs_a": e4m3_amax,
+            "f8e4m3_nonzero_values": e4m3_nonzero,
+            "control_f32_tile_as_e4m3": list(ca), "control_tile_ratio": ctrl,
+            "control_by_class": ctrl_by_class,
+            "control_fused_vs_unfused_tile_ratio": ctrl_self,
+            "control_e4m3_nonzero_values": ctrl_nonzero,
+            "e4m3_tile_as_f16": list(cb), "e4m3_as_f16_tile_ratio": up,
+            "e4m3_as_f16_by_class": up_by_class, "kappa_bound": kappa,
+            "accuracy": acc, "loglik_rel": ll_rel,
+            "loglik_control_rel": ctrl_rel, "loglik_e4m3_as_f16_rel": up_rel,
+            "loglik_bound": LOGLIK_BOUND,
+            "kl": {str(e): v for e, v in kl.items()},
+            "fused_step_f64_mid": step}
 
 
 # flash cases: (tag, B, S, T, H, KV, hd, dtype, causal); the first is
@@ -1466,6 +1737,7 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=32768)
     ap.add_argument("--tb", type=int, default=512)
     ap.add_argument("--mxp-n", type=int, default=8192)
+    ap.add_argument("--geo-n", type=int, default=16384)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1501,7 +1773,8 @@ def main() -> int:
         f"{fused['factor_s']:.3f}s")
     del a, lref
     mxp = mxp_fused(args.mxp_n, args.tb, dev)   # 5. mixed precision
-    torch.cuda.empty_cache()                    # 6. LM serving
+    geo_res = geo(args.geo_n, args.tb, dev, args.seed, card)   # 6. geo
+    torch.cuda.empty_cache()                    # 7. LM serving
     log(f"lm: device memory in use before the model "
         f"{torch.cuda.memory_allocated(dev) / 2 ** 20:.0f} MiB")
     checks.update(flash_checks(dev, g))
@@ -1512,6 +1785,8 @@ def main() -> int:
         if name == "fused_column_step":
             row = checks[f"{name}[float32,R=32,K=32,diag=1]"]
             launches = fused["launches"][name]
+            row = {**row, "geo_f64_launches": geo_res["launches"][name],
+                   "geo_f64_mid_ms": geo_res["fused_step_f64_mid"]["ms"]}
         elif name == "flash_attention":
             row = checks[f"{name}[prefill]"]
             launches = lm["prefill_launches"][name]
@@ -1526,16 +1801,17 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
                     "split", "device_ms", "library_device_ms", "geometry",
-                    "grid"):
+                    "grid", "geo_f64_launches", "geo_f64_mid_ms"):
             if key in row:
                 kernels[-1][key] = row[key]
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
-         "fused": fused, "mxp": mxp, "lm": lm, "kernels": kernels}, indent=1))
+         "fused": fused, "mxp": mxp, "geo": geo_res, "lm": lm,
+         "kernels": kernels}, indent=1))
     log(card)
-    print(json.dumps({"kernels": kernels}))     # 7. kernels line
+    print(json.dumps({"kernels": kernels}))     # 8. kernels line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,14 +10,24 @@ passes ``device="cpu"``.
 The port covers the single-device Cholesky path: tiling, precision plans,
 schedules, the op-stream executor (op by op, or one fused launch per column
 step with ``fuse_columns``), blocked solves, the four per-op kernels (GEMM,
-SYRK, TRSM, POTRF) and the fused column-step kernel.  It also covers the
-LM scaffold's serving path for the dense family (``configs``, ``models``,
-``launch``: prefill through the hand-written flash attention kernel, and
-the decode server), with ``convert.params_from_reference`` to carry the
-reference's weights across.  Every TPU kernel of the reference has its
+SYRK, TRSM, POTRF) and the fused column-step kernel.  Beside it: the
+reference's NumPy replays (``backend="numpy"``, single- and multi-device
+schedules, on the host), the analytics (byte volumes, the event simulators
+over the ``HW`` datasheet presets, the traces), and the geospatial
+workload in :mod:`repro_torch.geo` (Matérn covariances, the Gaussian
+log-likelihood and the MxP KL divergence, on the card by default).  It
+also covers the LM scaffold's serving path for the dense family
+(``configs``, ``models``, ``launch``: prefill through the hand-written
+flash attention kernel, and the decode server), with
+``convert.params_from_reference`` to carry the reference's weights across.  Every TPU kernel of the reference has its
 Hopper counterpart.  See ROADMAP.md for what follows.
 """
 from repro_torch.convert import config_from_reference, params_from_reference
+from repro_torch.core.analytics import (HW, HardwareModel, ascii_trace,
+                                        chrome_trace,
+                                        crosscheck_executed_volume, simulate,
+                                        simulate_multi, volume_report,
+                                        volume_report_multi)
 from repro_torch.core.api import (CholeskyConfig, CholeskyPlan, OOCSolver,
                                   clear_plan_cache, plan, plan_cache_stats)
 from repro_torch.core.cholesky import make_torch_executor, plan_for_matrix
@@ -43,4 +53,7 @@ __all__ = [
     "build_task_dag", "verify_dispatch",
     "TileLayout", "from_tiles", "random_spd", "to_tiles",
     "call_counts", "launch_counts", "reset_counts",
+    "HardwareModel", "HW", "simulate", "simulate_multi",
+    "volume_report", "volume_report_multi", "ascii_trace", "chrome_trace",
+    "crosscheck_executed_volume",
 ]

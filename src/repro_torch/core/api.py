@@ -1,6 +1,6 @@
 """Two-phase planner/executor API: ``CholeskyConfig`` -> plan -> solve.
 
-Port of ``repro/core/api.py`` for the single-device path::
+Port of ``repro/core/api.py``::
 
     import repro_torch
 
@@ -12,11 +12,17 @@ Port of ``repro/core/api.py`` for the single-device path::
 The config mirrors the reference field for field, so one config drives
 both packages (:func:`repro_torch.convert.config_from_reference`).  It
 differs where PyTorch does: ``compute_dtype`` is a torch dtype (``None``
-means float64, the reference's x64 default), ``backend`` is ``"auto"`` or
-``"torch"``, and ``use_pallas`` keeps its name but selects the hand-written
-Hopper tile kernels.  Options whose slice is not ported yet raise
-``NotImplementedError`` naming the ROADMAP item.  There is no jit here:
-``compile()`` builds the op-by-op executor once per plan and device.
+means float64, the reference's x64 default), ``backend`` is ``"auto"``,
+``"torch"`` or ``"numpy"``, and ``use_pallas`` keeps its name but selects
+the hand-written Hopper tile kernels.  There is no jit here: ``compile()``
+builds the op-by-op executor once per plan and device.
+
+``backend="numpy"`` runs the reference's NumPy replays on the host, for one
+device or for the multi-device schedules of ``ndev``/``grid``/``lookahead``
+(the torch executor is single-device).  It runs only when asked for:
+``"auto"`` resolves to ``"torch"``.  Options whose slice is not ported yet
+(the multi-device executor, the disk tier, the autotuner) raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,12 +35,14 @@ import numpy as np
 import torch
 
 from .precision import LADDERS, PrecisionPlan, uniform_plan
-from .schedule import (MultiDeviceSchedule, OpKind, build_schedule,
+from .schedule import (MultiDeviceSchedule, OpKind,
+                       build_multidevice_schedule, build_schedule,
                        min_cache_slots)
 from .tiling import TileLayout, from_tiles, to_tiles
 
 _POLICIES = ("sync", "async", "v1", "v2", "v3", "v4", "auto")
-_BACKENDS = ("auto", "torch")
+_MULTIDEV_POLICIES = ("sync", "v1", "v2", "v3")
+_BACKENDS = ("auto", "torch", "numpy")
 _COMPUTE_DTYPES = (torch.float64, torch.float32)
 _DEFAULT_BLOCK = (4, 4)
 
@@ -69,17 +77,12 @@ class CholeskyConfig:
     def __post_init__(self):
         object.__setattr__(self, "policy", str(self.policy).lower())
         object.__setattr__(self, "block", tuple(self.block))
-        if self.grid is not None:
-            object.__setattr__(self, "grid", tuple(self.grid))
         if self.tb < 0:
             raise ValueError(f"tb must be >= 1, or 0 to let the tuner "
                              f"pick it, got {self.tb}")
         if self.policy not in _POLICIES:
             raise ValueError(f"unknown policy {self.policy!r}; "
                              f"expected one of {_POLICIES}")
-        if self.backend == "numpy":
-            raise _not_ported("backend='numpy' (the NumPy replays)",
-                              "queue 1, item 2")
         if self.backend not in _BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"expected one of {_BACKENDS}")
@@ -96,6 +99,28 @@ class CholeskyConfig:
                              f"default), got {self.cache_slots}")
         if self.ndev < 1:
             raise ValueError(f"ndev must be >= 1, got {self.ndev}")
+        if self.grid is not None:
+            object.__setattr__(self, "grid", tuple(self.grid))
+            if (len(self.grid) != 2
+                    or any(not isinstance(x, int) or x < 1
+                           for x in self.grid)):
+                raise ValueError(f"grid must be two positive ints (p, q), "
+                                 f"got {self.grid!r}")
+            if self.grid[0] * self.grid[1] != self.ndev:
+                raise ValueError(
+                    f"grid={self.grid} does not factor ndev={self.ndev} "
+                    f"(need p*q == ndev)")
+        if self.lookahead is not None:
+            if (isinstance(self.lookahead, bool)
+                    or not isinstance(self.lookahead, int)
+                    or self.lookahead < 0):
+                raise ValueError(f"lookahead must be an int >= 0 (or None), "
+                                 f"got {self.lookahead!r}")
+            if self.lookahead > 0 and self.ndev < 2:
+                raise ValueError(
+                    f"lookahead={self.lookahead} pipelines panels across "
+                    f"devices and needs ndev > 1 (got ndev={self.ndev}); "
+                    f"the single-device analogue is policy='async'/'v4'")
         if (len(self.block) != 2
                 or any(not isinstance(x, int) or x < 1 for x in self.block)):
             raise ValueError(f"block must be two positive ints, "
@@ -104,11 +129,11 @@ class CholeskyConfig:
             raise ValueError(
                 f"block={self.block} is only meaningful for policy='v4' "
                 f"(got policy={self.policy!r})")
-        if self.lookahead is not None and (
-                isinstance(self.lookahead, bool)
-                or not isinstance(self.lookahead, int) or self.lookahead < 0):
-            raise ValueError(f"lookahead must be an int >= 0 (or None), "
-                             f"got {self.lookahead!r}")
+        if self.ndev > 1 and self.policy not in _MULTIDEV_POLICIES \
+                and self.policy != "auto":
+            raise ValueError(
+                f"multi-device schedules support sync/v1/v2/v3, "
+                f"got {self.policy!r}")
         if self.host_slots < 0:
             raise ValueError(f"host_slots must be >= 0, got {self.host_slots}")
         if self.compute_dtype is not None \
@@ -120,24 +145,57 @@ class CholeskyConfig:
         if self.tb == 0 or self.policy == "auto":
             raise _not_ported("the autotuner (tb=0, policy='auto')",
                               "queue 1, item 9")
-        if self.ndev > 1 or self.grid not in (None, (1, 1)) or self.lookahead:
+        # a grid or a lookahead > 0 has needed ndev > 1 above
+        if self.ndev > 1 and self.backend != "numpy":
             raise _not_ported("the multi-device executor (ndev > 1, grid, "
-                              "lookahead)", "queue 1, item 6")
+                              "lookahead; backend='numpy' replays them on "
+                              "the host)", "queue 1, item 6")
         if self.host_slots > 0:
             raise _not_ported("the disk tier (host_slots > 0)",
                               "queue 1, item 7")
-        if self.hw is not None:
-            raise _not_ported("the hardware presets (hw)", "queue 1, item 5")
         if self.cache_slots > 0:
-            floor = min_cache_slots(self.policy, self.block)
+            floor = min_cache_slots(self.policy, self.block,
+                                    self.lookahead or 0)
             if self.cache_slots < floor:
                 raise ValueError(
                     f"policy {self.policy!r}"
                     + (f" with block={self.block}" if self.policy == "v4"
                        else "")
+                    + (f" at lookahead={self.lookahead}"
+                       if self.lookahead else "")
                     + f" needs >= {floor} cache slots"
-                    + (" (h*w + w + 2)" if self.policy == "v4" else "")
+                    + (" (h*w + w + 2)" if self.policy == "v4" else
+                       " (each lookahead depth pins one extra slot)"
+                       if self.lookahead else "")
                     + f", got {self.cache_slots}")
+        if self.hw is not None:
+            from .analytics import HW
+            if self.hw not in HW:
+                raise ValueError(f"unknown hw preset {self.hw!r}; "
+                                 f"expected one of {tuple(HW)}")
+            mem = HW[self.hw].mem_bytes
+            if mem > 0 and self.tb > 0 and self.cache_slots > 0:
+                # 8-byte device tiles, as the reference counts them
+                need = self.cache_slots * self.tb * self.tb * 8
+                if need > mem:
+                    raise ValueError(
+                        f"cache_slots={self.cache_slots} of "
+                        f"{self.tb}x{self.tb} f64 tiles needs "
+                        f"{need / 1e9:.1f} GB, but hw={self.hw!r} has "
+                        f"mem_bytes={mem / 1e9:.1f} GB")
+        for name, on in (("use_pallas", self.use_pallas),
+                         ("fuse_columns", self.fuse_columns),
+                         ("compute_dtype", self.compute_dtype is not None)):
+            if on and self.resolved_backend() != "torch":
+                raise ValueError(
+                    f"{name} requires the 'torch' backend, got "
+                    f"backend={self.backend!r} (resolved "
+                    f"{self.resolved_backend()!r})")
+
+    def resolved_backend(self) -> str:
+        """Backend ``'auto'`` runs on: ``'torch'``.  The NumPy replays run
+        only when ``backend='numpy'`` asks for them."""
+        return "torch" if self.backend == "auto" else self.backend
 
     @property
     def resolved_compute_dtype(self) -> torch.dtype:
@@ -165,7 +223,13 @@ class CholeskyConfig:
         return dataclasses.replace(self, eps_target=None, plan=pplan)
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, backend: str) -> torch.device:
+    if backend == "numpy":
+        device = torch.device("cpu" if device is None else device)
+        if device.type != "cpu":
+            raise ValueError(f"backend='numpy' replays on the host and "
+                             f"solves on the CPU, got device {device}")
+        return device
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -181,7 +245,8 @@ class OOCSolver:
 
     ``factor(a)`` fills this solver's host tile store and replays the
     plan's schedule; ``solve``/``solve_lower``/``logdet`` run blocked
-    substitution against that store on the solver's device.  Each
+    substitution against that store on the solver's device;
+    ``simulate(hw)``/``volume()`` expose the plan's analytics.  Each
     ``compile()`` returns a fresh solver: the executor is shared through
     the plan, the factored store is not."""
 
@@ -230,6 +295,8 @@ class OOCSolver:
             "h2d_bytes": sched.loads_bytes(),
             "d2h_bytes": sched.stores_bytes(),
         }
+        if self.config.ndev > 1:
+            transfers["bcast_bytes"] = sched.bcast_bytes()
         if self._last_io is not None:
             transfers.update({"executed_" + k: v
                               for k, v in self._last_io.items()})
@@ -237,6 +304,13 @@ class OOCSolver:
                 "factor_calls": self._factor_calls,
                 "solve_calls": self._solve_calls,
                 "transfers": transfers}
+
+    def simulate(self, hw, link_bw=None, record_timeline: bool = False):
+        return self._plan.simulate(hw, link_bw=link_bw,
+                                   record_timeline=record_timeline)
+
+    def volume(self) -> dict:
+        return self._plan.volume()
 
     def _store(self) -> torch.Tensor:
         if self._tiles is None:
@@ -252,6 +326,8 @@ class OOCSolver:
         ``materialize=False`` (the factor then stays in the tile store for
         ``solve``/``solve_lower``/``logdet``).  Each call overwrites this
         solver's previous factor."""
+        if self._executor.replay is not None:
+            return self._factor_numpy(a, materialize)
         if not isinstance(a, torch.Tensor):
             a = torch.from_numpy(np.asarray(a, dtype=np.float64))
         if tuple(a.shape) != (self.n, self.n):
@@ -274,6 +350,25 @@ class OOCSolver:
         if not materialize:
             return None
         return np.tril(from_tiles(host.to(torch.float64).numpy()))
+
+    def _factor_numpy(self, a, materialize: bool) -> np.ndarray | None:
+        """The NumPy replay of ``backend='numpy'``: the factor lands in an
+        f64 CPU tile store."""
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        a = np.asarray(a, dtype=np.float64)
+        if a.shape != (self.n, self.n):
+            raise ValueError(
+                f"matrix shape {a.shape} does not match the plan's "
+                f"n={self.n}; build a new plan for a different size")
+        self._factored = False
+        out = self._executor.replay(to_tiles(a, self.config.tb))
+        self._tiles = torch.from_numpy(out)
+        self._factored = True
+        self._factor_calls += 1
+        if not materialize:
+            return None
+        return np.tril(from_tiles(out))
 
     def _factored_tiles(self) -> torch.Tensor:
         if not self._factored:
@@ -321,18 +416,29 @@ class OOCSolver:
     def logdet(self) -> float:
         """``log|A|`` of the last factored matrix, from the tile store."""
         from .solve import logdet_tiles
-        return logdet_tiles(self._factored_tiles(), self.device)
+        return logdet_tiles(self._factored_tiles())
 
 
 class _CompiledExecutor:
     """The per-plan executor for one device and compute dtype, shared by
-    every solver of the plan.  Holds no factored data."""
+    every solver of the plan.  Holds no factored data.  On the numpy
+    backend it builds nothing: ``replay`` runs the plan's NumPy replay."""
 
     def __init__(self, plan: "CholeskyPlan", device: torch.device):
-        from .cholesky import make_torch_executor
+        from .cholesky import (make_torch_executor, run_multidevice_numpy,
+                               run_schedule_numpy)
         cfg = plan.config
         self.device = device
         self.dtype = cfg.resolved_compute_dtype
+        self.run = self.replay = None
+        if cfg.resolved_backend() == "numpy":
+            if cfg.ndev > 1:
+                self.replay = lambda tiles: run_multidevice_numpy(
+                    tiles, plan.schedule)
+            else:
+                self.replay = lambda tiles: run_schedule_numpy(
+                    tiles, plan.single_schedule())
+            return
         self.run = make_torch_executor(plan.single_schedule(), self.dtype,
                                        use_pallas=cfg.use_pallas,
                                        device=device,
@@ -364,12 +470,32 @@ class CholeskyPlan:
         """A fresh solver over this plan's executor on ``device``
         (``"cuda"`` unless the caller asks for ``"cpu"``; raises when CUDA
         is asked for and absent).  The executor is built on first call and
-        rebuilt only when the device changes."""
-        device = _resolve_device(device)
+        rebuilt only when the device changes.  The numpy backend needs no
+        card: its solver runs on the CPU."""
+        device = _resolve_device(device, self.config.resolved_backend())
         with self._compile_lock:
             if self._executor is None or self._executor.device != device:
                 self._executor = _CompiledExecutor(self, device)
             return OOCSolver(self, self._executor)
+
+    def simulate(self, hw, link_bw=None, record_timeline: bool = False):
+        """Three-engine event model of the schedule on the hardware model
+        ``hw`` (per device and a shared link for ndev > 1): a model
+        reading, not a measurement."""
+        from . import analytics
+        if self.config.ndev > 1:
+            return analytics.simulate_multi(self.schedule, hw,
+                                            link_bw=link_bw,
+                                            record_timeline=record_timeline)
+        return analytics.simulate(self.single_schedule(), hw,
+                                  record_timeline=record_timeline)
+
+    def volume(self) -> dict:
+        """Exact byte-volume report of the static schedule (Fig. 8/12)."""
+        from . import analytics
+        if self.config.ndev > 1:
+            return analytics.volume_report_multi(self.schedule)
+        return analytics.volume_report(self.single_schedule())
 
 
 _PLAN_CACHE: "collections.OrderedDict[tuple, CholeskyPlan]" = \
@@ -411,9 +537,11 @@ def plan(n: int, config: CholeskyConfig | None = None,
             "eps_target makes the precision plan matrix-dependent, so it "
             "cannot be planned ahead of the data: freeze it with "
             "config.specialize(a) (or pass plan=plan_for_matrix(...))")
-    if config.grid == (1, 1) or config.lookahead == 0:
+    if config.grid == (config.ndev, 1):
         # the reference's canonical forms: both build the default schedule
-        config = dataclasses.replace(config, grid=None, lookahead=None)
+        config = dataclasses.replace(config, grid=None)
+    if config.lookahead == 0:
+        config = dataclasses.replace(config, lookahead=None)
     with _PLAN_CACHE_LOCK:
         layout = TileLayout(n, config.tb)   # validates n % tb == 0
         key = (n, config)
@@ -424,12 +552,18 @@ def plan(n: int, config: CholeskyConfig | None = None,
             return cached
         _PLAN_CACHE_MISSES += 1
         pplan = config.plan or uniform_plan(layout.nt, "f64", config.ladder)
-        single = build_schedule(layout.nt, config.tb, config.policy,
-                                config.cache_slots, pplan,
-                                block=config.block)
-        p = CholeskyPlan(n=n, config=config,
-                         schedule=MultiDeviceSchedule.from_single(single),
-                         _single=single)
+        if config.ndev > 1:
+            msched = build_multidevice_schedule(
+                layout.nt, config.tb, config.ndev, config.policy,
+                config.cache_slots, pplan, grid=config.grid,
+                lookahead=config.lookahead or 0)
+            single = None
+        else:
+            single = build_schedule(layout.nt, config.tb, config.policy,
+                                    config.cache_slots, pplan,
+                                    block=config.block)
+            msched = MultiDeviceSchedule.from_single(single)
+        p = CholeskyPlan(n=n, config=config, schedule=msched, _single=single)
         _PLAN_CACHE[key] = p
         while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
             _PLAN_CACHE.popitem(last=False)

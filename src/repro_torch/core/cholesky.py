@@ -15,6 +15,10 @@ by op, on one stream:
   stream orders a later LOAD of a tile after its earlier STORE.
 
 Transfers carry compute-dtype bytes, as the reference's do.
+
+It also holds the reference's NumPy replays, ``run_schedule_numpy`` and
+``run_multidevice_numpy`` (``backend="numpy"``): host oracles that need no
+card, bitwise the reference's on the same schedule.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from ..kernels import ops as kops
 from ..kernels.ref import _round
 from .precision import (PrecisionPlan, assign_precision, tile_amax,
                         tile_norms, uniform_plan)
-from .schedule import HOST_IO, Op, OpKind, Schedule
+from .schedule import HOST_IO, MultiDeviceSchedule, Op, OpKind, Schedule
 
 
 def _make_kernel_fns(use_pallas: bool) -> dict:
@@ -41,6 +45,117 @@ def _device_nslots(ops) -> int:
     return max((max(o.slot_c, o.slot_a, o.slot_b)
                 for o in ops if o.kind not in HOST_IO), default=-1) + 1
 
+
+# --------------------------------------------------------------------------
+# NumPy replays (the reference's oracles)
+# --------------------------------------------------------------------------
+
+def _np_round(x: np.ndarray, cls_name: str) -> np.ndarray:
+    """Round an f64 tile through its class, in NumPy: the port's class
+    round on a zero-copy CPU view, which is bitwise the reference's
+    ``_np_round`` (held by ``tests/test_torch_rounding.py``)."""
+    return _round(torch.from_numpy(x), cls_name).numpy()
+
+
+def _np_interpret_op(host: np.ndarray, slots: np.ndarray, op: Op,
+                     lad: tuple) -> None:
+    """Execute one op against the shared host store and a slot buffer.
+
+    The numerical semantics of both replays, op for op the reference's: a
+    RECV is a LOAD whose bytes crossed the interconnect, a host-landing
+    RECV (``slot_c < 0``) is coherence bookkeeping against the shared
+    store, BCAST/ALLOC/FREE are bookkeeping only, and FETCH/SPILL delegate
+    to a host store object that has ``fetch``/``spill``."""
+    if op.kind is OpKind.FETCH:
+        host.fetch(op)
+    elif op.kind is OpKind.SPILL:
+        host.spill(op)
+    elif op.kind is OpKind.LOAD or op.kind is OpKind.RECV:
+        if op.slot_c < 0:
+            return
+        slots[op.slot_c] = _np_round(host[op.i, op.j], lad[op.cls])
+    elif op.kind is OpKind.STORE:
+        rounded = _np_round(slots[op.slot_c], lad[op.cls])
+        slots[op.slot_c] = rounded
+        host[op.i, op.j] = rounded
+    elif op.kind is OpKind.SYRK:
+        a = slots[op.slot_a]
+        slots[op.slot_c] = slots[op.slot_c] - a @ a.T
+    elif op.kind is OpKind.GEMM:
+        slots[op.slot_c] = slots[op.slot_c] - slots[op.slot_a] @ slots[op.slot_b].T
+    elif op.kind is OpKind.POTRF:
+        slots[op.slot_c] = np.linalg.cholesky(
+            0.5 * (slots[op.slot_c] + slots[op.slot_c].T))
+    elif op.kind is OpKind.TRSM:
+        import scipy.linalg as sla
+        l = slots[op.slot_a]
+        slots[op.slot_c] = sla.solve_triangular(
+            l, slots[op.slot_c].T, lower=True).T
+
+
+def _no_spill(host_slots: int) -> None:
+    if host_slots > 0:
+        raise NotImplementedError(
+            "spill schedules (host_slots > 0) are not ported yet "
+            "(ROADMAP queue 1, item 7)")
+
+
+def run_schedule_numpy(host_tiles: np.ndarray, sched: Schedule,
+                       trace=None) -> np.ndarray:
+    """Interpret the op stream with NumPy; returns the factored tile store.
+
+    ``trace``: an active recorder (``active``, ``now()``, ``record(...)``)
+    records one span per op; ``None`` or an inactive one leaves the loop
+    untouched."""
+    _no_spill(sched.host_slots)
+    host = host_tiles.astype(np.float64).copy()
+    tb = sched.tb
+    nslots = _device_nslots(sched.ops)
+    slots = np.zeros((nslots, tb, tb), dtype=np.float64)
+    lad = sched.plan.ladder
+    if trace is not None and getattr(trace, "active", False):
+        for idx, op in enumerate(sched.ops):
+            t0 = trace.now()
+            _np_interpret_op(host, slots, op, lad)
+            trace.record(idx, op.kind.value, 0, t0, trace.now(), op.bytes,
+                         lad[op.cls], op.i, op.j)
+        return host
+    for op in sched.ops:
+        _np_interpret_op(host, slots, op, lad)
+    return host
+
+
+def run_multidevice_numpy(host_tiles: np.ndarray,
+                          msched: MultiDeviceSchedule,
+                          trace=None) -> np.ndarray:
+    """Interpret all per-device op streams against one host tile store.
+
+    Each device gets its own slot buffer; the streams are replayed in
+    :meth:`MultiDeviceSchedule.iter_column_order` (traced: in
+    ``iter_dispatch_order``, each span tagged with its device stream and
+    dispatch phase), so every RECV observes the sender's finalized tile."""
+    _no_spill(msched.host_slots)
+    host = host_tiles.astype(np.float64).copy()
+    tb = msched.tb
+    lad = msched.plan.ladder
+    slots = [np.zeros((msched.stream_nslots(d), tb, tb), dtype=np.float64)
+             for d in range(msched.ndev)]
+    if trace is not None and getattr(trace, "active", False):
+        for idx, (d, op, phase) in enumerate(
+                msched.iter_dispatch_order(with_phase=True)):
+            t0 = trace.now()
+            _np_interpret_op(host, slots[d], op, lad)
+            trace.record(idx, op.kind.value, d, t0, trace.now(), op.bytes,
+                         lad[op.cls], op.i, op.j, phase)
+        return host
+    for d, op in msched.iter_column_order():
+        _np_interpret_op(host, slots[d], op, lad)
+    return host
+
+
+# --------------------------------------------------------------------------
+# The torch executor
+# --------------------------------------------------------------------------
 
 def _load(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
           io: dict) -> None:
@@ -435,10 +550,7 @@ def make_torch_executor(sched: Schedule, compute_dtype=torch.float64,
     as one ``fused_column_step`` launch (:func:`_run_ops_fused`); the
     transfers are unchanged.
     """
-    if sched.host_slots > 0:
-        raise NotImplementedError(
-            "spill schedules (host_slots > 0) are not ported yet "
-            "(ROADMAP queue 1, item 7)")
+    _no_spill(sched.host_slots)
     device = torch.device(device)
     tb = sched.tb
     lad = sched.plan.ladder

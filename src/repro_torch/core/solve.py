@@ -9,13 +9,15 @@ streaming each tile of L from the host store once per sweep:
 
 ``tiles`` is the ``[nt, nt, tb, tb]`` store (CPU, in the compute dtype);
 ``b`` is ``(n,)`` or ``k`` stacked columns ``(n, k)``; results come back as
-f64 tensors on ``device``.  No tile op here is a hand-written kernel: the
+f64 tensors on ``device``.  The logdet sums the diagonals on the host, as
+the reference does.  No tile op here is a hand-written kernel: the
 reference's solve reaches none either.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -93,24 +95,26 @@ def cho_solve_tiles(tiles: torch.Tensor, b, device="cpu",
         rhs_block)
 
 
-def logdet_tiles(tiles: torch.Tensor, device="cpu") -> float:
+def logdet_tiles(tiles: torch.Tensor) -> float:
     """``log|A| = 2 sum_i log L_ii`` from the diagonal tiles.
 
-    A non-positive diagonal entry means the factorization lost positive
-    definiteness upstream; it raises instead of returning NaN or -inf.
+    The host store's diagonals are summed in NumPy, tile by tile, as the
+    reference sums them, so a store equal to the reference's gives its
+    logdet bitwise.  A non-positive diagonal entry means the factorization
+    lost positive definiteness upstream; it raises instead of returning
+    NaN or -inf.
     """
     nt = tiles.shape[0]
-    diag = torch.stack([tiles[i, i].diagonal() for i in range(nt)])
-    diag = diag.to(device).to(torch.float64)
-    bad = ~(diag > 0.0)
-    if bool(bad.any()):
-        i = int(bad.any(dim=1).nonzero()[0])
-        d = diag[i].cpu()
-        idx = (~(d > 0.0)).nonzero().flatten().tolist()
-        raise ValueError(
-            f"logdet: diagonal tile ({i}, {i}) has non-positive "
-            f"diagonal entries at local indices {idx} "
-            f"(min value {float(d.min())!r}); the factor is not a valid "
-            "Cholesky factor — the factorization lost positive "
-            "definiteness (e.g. precision ladder too aggressive)")
-    return 2.0 * float(torch.log(diag).sum())
+    acc = 0.0
+    for i in range(nt):
+        d = np.diag(tiles[i, i].cpu().to(torch.float64).numpy())
+        if not np.all(d > 0.0):
+            bad = np.flatnonzero(~(d > 0.0))
+            raise ValueError(
+                f"logdet: diagonal tile ({i}, {i}) has non-positive "
+                f"diagonal entries at local indices {bad.tolist()} "
+                f"(min value {d.min()!r}); the factor is not a valid "
+                "Cholesky factor — the factorization lost positive "
+                "definiteness (e.g. precision ladder too aggressive)")
+        acc += float(np.sum(np.log(d)))
+    return 2.0 * acc

@@ -559,6 +559,80 @@ def test_cuda_fused_executor_one_launch_per_column(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_geo_fused_mxp_factor(cuda):
+    """The geospatial path at n = 2048: a weakly correlated Matérn
+    covariance built on the card and planned on the ``gpu`` ladder, whose
+    plan holds unscaled e4m3 tiles, factored in f64 through the fused
+    kernel (nt launches, no per-op launch) and unfused.  The two agree
+    tile by tile within max(1e-12, 4 EPS[class]) max|L| plus four f32
+    quanta of the largest f32 tile (chip_smoke.py's check); the same plan
+    with its least f32 tile stored as e4m3 does not, though its own fused
+    and unfused factors agree.  The fused factor keeps the plan's backward
+    error."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.core.precision import PrecisionPlan
+    from repro_torch.geo import generate_locations, matern_covariance
+    from repro_torch.geo.matern import BETA_WEAK
+    n, tb, eps = 2048, 128, 1e-6
+    nt = n // tb
+    cov = matern_covariance(generate_locations(n, 0), beta=BETA_WEAK,
+                            device=cuda)
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, ladder="gpu", eps_target=eps, use_pallas=True,
+        fuse_columns=True).specialize(cov)
+    plan = cfg.plan
+    hist = plan.histogram()
+    assert hist["f8e4m3"] > 0 and sum(v > 0 for v in hist.values()) >= 3
+
+    def factor(c):
+        solver = repro_torch.plan(n, c).compile(device=cuda)
+        ops.reset_counts()
+        solver.factor(cov, materialize=False)
+        tiles = solver.tiles.to(cuda)
+        return (torch.tril(tiles.permute(0, 2, 1, 3).reshape(n, n)),
+                ops.launch_counts())
+
+    def blk(x, i, j):
+        return x[i * tb:(i + 1) * tb, j * tb:(j + 1) * tb]
+
+    lf, counts = factor(cfg)
+    assert counts.pop("fused_column_step") == nt
+    assert set(counts.values()) == {0}
+    lu, _ = factor(dataclasses.replace(cfg, fuse_columns=False))
+    # the control: the f32 tile with the smallest entries stored as e4m3,
+    # which puts values inside e4m3's range through the e4m3 epilogue
+    f32, e4m3 = plan.ladder.index("f32"), plan.ladder.index("f8e4m3")
+    ci, cj = min(((i, j) for i in range(nt) for j in range(i)
+                  if plan.classes[i, j] == f32),
+                 key=lambda t: float(blk(cov, *t).abs().max()))
+    classes = plan.classes.copy()
+    classes[ci, cj] = classes[cj, ci] = e4m3
+    ctrl = dataclasses.replace(cfg, plan=PrecisionPlan(classes, plan.ladder,
+                                                       eps))
+    lc, _ = factor(ctrl)
+    lcu, _ = factor(dataclasses.replace(ctrl, fuse_columns=False))
+    assert int(blk(lcu, ci, cj).count_nonzero()) > 0
+
+    def ratio(l, lu, plan):
+        scale = float(lu.abs().max())
+        flip = max(4 * _EPS["f32"] * float(blk(lu, i, j).abs().max())
+                   for i in range(nt) for j in range(i + 1)
+                   if plan.name(i, j) == "f32")
+        return max(float((blk(l, i, j) - blk(lu, i, j)).abs().max())
+                   / (max(1e-12, 4 * _EPS[plan.name(i, j)]) * scale
+                      + 4 * flip)
+                   for i in range(nt) for j in range(i + 1))
+
+    assert ratio(lf, lu, plan) <= 1.0
+    assert ratio(lc, lcu, ctrl.plan) <= 1.0
+    assert not ratio(lc, lu, plan) <= 1.0
+    backward = torch.linalg.norm(lf @ lf.T - cov) / torch.linalg.norm(cov)
+    assert float(backward) <= eps
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("tb", [512, 1024])
 def test_cuda_fused_nan_from_a_pivot_inside_a_block(cuda, tb, dtype):

@@ -194,8 +194,10 @@ def test_compile_without_cuda_raises(monkeypatch):
     dict(ndev=2), dict(host_slots=4),
     # the fused step itself is ported; across devices it is not
     pytest.param(dict(fuse_columns=True, ndev=2), id="fuse_columns"),
-    dict(tb=0), dict(policy="auto"), dict(backend="numpy"),
-    dict(hw="h100-pcie"),
+    dict(tb=0), dict(policy="auto"),
+    # the NumPy replays and the hw presets are ported; the spill replay and
+    # the tuner that the presets drive are not
+    dict(backend="numpy", host_slots=4), dict(hw="h100-pcie", tb=0),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -222,7 +224,10 @@ def test_config_from_reference_mirrors_fields():
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core.api, "
             "repro_torch.kernels.ops, repro_torch.kernels._build, "
-            "repro_torch.kernels.fused_column\n"
+            "repro_torch.kernels.fused_column, repro_torch.core.analytics, "
+            "repro_torch.core.cholesky, repro_torch.geo, "
+            "repro_torch.geo.matern, repro_torch.geo.likelihood, "
+            "repro_torch.geo.kl\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "print(bad)\n")
