@@ -58,7 +58,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the control's solver must fail that check); the
    KL divergence at eps_target 1e-4, 1e-6 and 1e-8, whose order must be
    the reference's; the fused f64 step at R = K = nt / 2, timed;
-7. LM serving, qwen3-14b at published widths and depth (bf16 activations,
+7. multi-device: the executor over four logical devices, on four cards
+   where the machine has them, else sharing this one card (it says which),
+   each on a CUDA stream of its own.  Config A is phase 4's matrix and
+   configuration on a 1D grid (4, 1), unfused then fused: launches by
+   kernel (per-op: the schedule's counts; fused: at most one a segment's
+   column and no more than the reference's grouping gives), the executed
+   LOAD/STORE copies summed over the devices against the schedule, the
+   BCAST/RECV counters through ``crosscheck_executed_volume``, accuracy,
+   solve and logdet as phase 4.  Config B is phase 5's KMS matrix at
+   n = 4096 (``MD_MXP_N``) on a (2, 2) grid with lookahead 1
+   (``gpu-scaled`` wires, host-landing RECVs),
+   unfused and fused, each against ``run_multidevice_numpy`` on the same
+   schedule within the reference's 1e-8, the two against each other
+   within the same, and against the f64 factor as phase 5; two controls
+   swapped in here, every wire rounded through e4m3 and the f64 class's
+   wires sent as f32, must fail the replay check.  Every factor runs
+   twice, bitwise equal, under
+   a watchdog that ends the process if one hangs;
+8. LM serving, qwen3-14b at published widths and depth (bf16 activations,
    f32 parameters from ``--seed``, the flash flag on): the flash kernels
    against their plain version at the prefill shape and nine others, each
    output row at its own scale (a zeroed output and a dropped KV tile must
@@ -73,7 +91,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt; both logit checks must reject two faults (the flash kernel
    without its causal mask, the attention output dropped); decode tokens/s
    is the median of six windows;
-8. the kernels line (JSON) and the last line,
+9. the kernels line (JSON; each kernel also with its launches in config
+   A) and the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
@@ -944,6 +963,21 @@ def main_path(a: torch.Tensor, lref: torch.Tensor, tb: int, dev, seed: int,
         f"{sim.makespan:.3f}s on that PCIe datasheet preset (this card is "
         f"SXM) beside the measured factor {factor_s:.3f}s")
 
+    acc = _accuracy(tag, solver, a, lref, eps_target, g)
+    return {"n": n, "tb": tb, "nt": n // tb, "ops": nops,
+            "fuse_columns": fuse, "precision_histogram": hist,
+            "factor_s": factor_s, "peak_mib_beyond_input": peak_mib,
+            "tflops_n3_over_3": n ** 3 / 3 / factor_s / 1e12,
+            "launches": launches, "schedule_counts": want,
+            "transfers": io, "volume": vol,
+            "model_makespan_h100_pcie_preset_s": sim.makespan,
+            **acc, "plan_compile_s": plan_s}
+
+
+def _accuracy(tag: str, solver, a, lref, eps_target: float, g) -> dict:
+    """The main path's factor, solve and logdet against the f64 factor on
+    the card."""
+    n, tb, dev = a.shape[0], solver.config.tb, a.device
     # accuracy against the f64 factor on the card. Every tile op runs in
     # f32 (f64-class tiles are held in the f32 compute dtype), and the plan
     # demotes a tile only where its class's roundoff keeps the error near
@@ -984,16 +1018,8 @@ def main_path(a: torch.Tensor, lref: torch.Tensor, tb: int, dev, seed: int,
     ld_err = abs(ld - ld_ref) / n
     log(f"{tag}: logdet {ld:.6f} vs {ld_ref:.6f}, error/n {ld_err:.3e}")
     require(ld_err < bound_l, f"logdet error {ld_err}")
-    return {"n": n, "tb": tb, "nt": nt, "ops": nops, "fuse_columns": fuse,
-            "precision_histogram": hist, "factor_s": factor_s,
-            "peak_mib_beyond_input": peak_mib,
-            "tflops_n3_over_3": n ** 3 / 3 / factor_s / 1e12,
-            "launches": launches, "schedule_counts": want,
-            "transfers": io, "volume": vol,
-            "model_makespan_h100_pcie_preset_s": sim.makespan,
-            "rel_factor_err": rel_l, "bound": bound_l,
-            "solve_s": solve_s, "solve_residual": res,
-            "logdet_err_per_n": ld_err, "plan_compile_s": plan_s}
+    return {"rel_factor_err": rel_l, "bound": bound_l, "solve_s": solve_s,
+            "solve_residual": res, "logdet_err_per_n": ld_err}
 
 
 def _dense_factor(solver, n: int) -> torch.Tensor:
@@ -1338,6 +1364,330 @@ def geo(n: int, tb: int, dev, seed: int, card: str) -> dict:
             "loglik_bound": LOGLIK_BOUND,
             "kl": {str(e): v for e, v in kl.items()},
             "fused_step_f64_mid": step}
+
+
+MD_NDEV = 4
+# config B's n: its NumPy replay runs on the host, 62 s at phase 5's 8192 on
+# the card's host, so it is cut to 4096, which still places scaled-FP8
+# wires and host-landing RECVs
+MD_MXP_N = 4096
+# seconds two multi-device factors may take before the watchdog ends the
+# process (a cooperative launch that never got its whole grid resident
+# would spin): over ten times the slowest pair seen (8.1 s)
+MD_WATCHDOG_S = 120
+# the reference's MxP cross-backend tolerance
+# (tests/test_backend_equivalence.py), max|L - L'| of factors of size ~1:
+# config B against the NumPy replay and fused against unfused.  The card
+# read 1.2e-14 to 2.3e-13 (NVIDIA H100 80GB HBM3, 700 W).  A lookahead
+# partial accumulator's f32 STORE can round the other way where two f64
+# GEMMs differ in their last bit (2.1e-7, seen on the CPU only, PyTorch's
+# GEMM against NumPy's: tests/test_torch_multidevice.py::test_lookahead_
+# rounding_flip_is_the_blas_order); the card has shown none.  The controls
+# that must fail it: every wire through e4m3, and the f64 class's wires
+# sent as f32 (1.4e-8 on the CPU at config B's n, in its seven lower
+# diagonal tiles).
+MD_MXP_TOL = 1e-8
+
+
+def md_devices(dev, ndev: int):
+    """``ndev`` logical devices: the first ``ndev`` cards where the machine
+    has them, else ``ndev`` on ``dev``'s card, each on a stream of its own.
+    Returns (the devices for ``compile``, whether they share one card)."""
+    if torch.cuda.device_count() >= ndev:
+        return "cuda", False
+    return [dev] * ndev, True
+
+
+def reference_fused_groups(segments) -> dict:
+    """The launches the reference's grouping gives on the multi-device
+    executor's segments (its ``_run_ops_fused``, ROADMAP queue 3 item 4):
+    it flushes the pending group where a LOAD targets a slot the group
+    writes or a host tile with a deferred STORE, and at a new column; a
+    flushed group that matches the kernel's pattern on slot numbers is one
+    fused launch, any other runs per op.  Returns ``{"fused_column":
+    launches, "tile_op": per-op calls}``, the reference's counters."""
+    from repro_torch.core.cholesky import _FUSABLE, _parse_column_group
+    from repro_torch.core.schedule import OpKind
+    counts = {"fused_column": 0, "tile_op": 0}
+
+    def flush(group):
+        if not group:
+            return
+        # slot numbers as names and operands: the reference parses slots
+        parsed = _parse_column_group(group)
+        if parsed is not None:
+            counts["fused_column"] += 1
+        else:
+            counts["tile_op"] += sum(e[0].kind in _FUSABLE for e in group)
+        group.clear()
+
+    for _d, _recvs, body, _bcasts in segments:
+        group, gwrite, dtiles = [], set(), set()
+        for op in body:
+            if op.kind is OpKind.LOAD:
+                if op.slot_c in gwrite or (op.i, op.j) in dtiles:
+                    flush(group)
+                    gwrite.clear()
+                    dtiles.clear()
+            elif op.kind is OpKind.STORE and group:
+                gwrite.add(op.slot_c)
+                dtiles.add((op.i, op.j))
+                group.append((op, None, op.slot_c))
+            elif op.kind in _FUSABLE:
+                if group and op.k != group[0][0].k:
+                    flush(group)
+                    gwrite.clear()
+                    dtiles.clear()
+                snap = {"a": ("slot", op.slot_a), "b": ("slot", op.slot_b),
+                        "l": ("slot", op.slot_a)}
+                group.append((op, snap, op.slot_c))
+                gwrite.add(op.slot_c)
+        flush(group)
+    return counts
+
+
+def _md_twice(solver, a, what: str):
+    """Two factors of ``a`` under the watchdog, which must be bitwise
+    equal (a missing event wait would show as a difference): (seconds of
+    each, the launches of the first).  The counts are set to 0 just before
+    the first and read just after it."""
+    import faulthandler
+
+    import repro_torch
+    secs = []
+    faulthandler.dump_traceback_later(MD_WATCHDOG_S, exit=True)
+    try:
+        repro_torch.reset_counts()
+        t0 = time.perf_counter()
+        solver.factor(a, materialize=False)
+        secs.append(time.perf_counter() - t0)
+        launches = repro_torch.launch_counts()
+        first = solver.tiles.clone()
+        t0 = time.perf_counter()
+        solver.factor(a, materialize=False)
+        secs.append(time.perf_counter() - t0)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    same = torch.equal(first, solver.tiles)
+    log(f"{what}: factor {secs[0]:.3f}s then {secs[1]:.3f}s; the two "
+        f"factors bitwise equal: {same}; launches {launches}")
+    require(same, f"{what}: two runs differ")
+    return secs, launches
+
+
+def _md_transfers(what: str, solver, itemsize: int) -> dict:
+    """The executed copies against the schedule: LOAD/STORE counts and
+    bytes summed over the devices, and the BCAST/RECV counters through the
+    analytics' crosscheck."""
+    import repro_torch
+    from repro_torch.core.schedule import OpKind
+    sched, tb = solver.schedule, solver.config.tb
+    io = solver.stats["transfers"]
+    tile = tb * tb * itemsize
+    require(io["executed_h2d_ops"] == sched.count(OpKind.LOAD)
+            and io["executed_d2h_ops"] == sched.count(OpKind.STORE)
+            and io["executed_h2d_bytes"] == io["executed_h2d_ops"] * tile
+            and io["executed_d2h_bytes"] == io["executed_d2h_ops"] * tile
+            and io["executed_wire_h2d_ops"] == sched.count(OpKind.BCAST),
+            f"{what}: executed transfers {io} do not match the schedule")
+    cc = repro_torch.crosscheck_executed_volume(sched,
+                                                solver.transfer_stats())
+    require(cc["match"], f"{what}: crosscheck {cc['mismatches']}")
+    log(f"{what}: executed bytes: H2D {io['executed_h2d_bytes']} "
+        f"({io['executed_h2d_ops']} LOADs), D2H {io['executed_d2h_bytes']} "
+        f"({io['executed_d2h_ops']} STOREs), wire H2D "
+        f"{io['executed_wire_h2d_bytes']} ({io['executed_wire_h2d_ops']} "
+        f"wires cut from a slab), "
+        f"RECV {io['executed_recv_bytes']} ({io['executed_recv_ops']} RECVs, "
+        f"{io['executed_recv_d2h_ops']} landing in a slab: "
+        f"{io['executed_recv_d2h_bytes']} D2H); BCAST "
+        f"{io['executed_bcast_bytes']}; crosscheck_executed_volume matches")
+    return io
+
+
+def multidevice(n: int, mxp_n: int, tb: int, dev, seed: int, card: str,
+                single: dict) -> dict:
+    """The multi-device executor on the card (four logical devices, on
+    four cards where the machine has them, else sharing this one): config
+    A, the main path's configuration on a 1D grid, unfused and fused; and
+    config B, the mixed-precision KMS plan on a (2, 2) grid with lookahead
+    1, unfused and fused, against the NumPy replay, with a control that
+    must fail that check.  Each factor runs twice, bitwise equal.
+    ``single`` holds phase 4's results (``main``, ``fused``), whose factor
+    times config A's are logged beside."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.core import cholesky as chol
+    from repro_torch.core.schedule import OpKind
+    from repro_torch.core.tiling import from_tiles, to_tiles
+    devices, shared = md_devices(dev, MD_NDEV)
+    log(f"md [{card}]: {MD_NDEV} logical devices "
+        + ("share this one card, each on a CUDA stream of its own (the "
+           "machine has one card)" if shared else f"on {MD_NDEV} cards"))
+    out = {"ndev": MD_NDEV, "shared_card": shared, "card": card}
+
+    # config A: the main path's configuration as four devices on a 1D grid
+    eps_target = 1e-6
+    a = make_spd(n, dev, seed)
+    lref = torch.linalg.cholesky(a)
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    for fuse in (False, True):
+        tag = "md A " + ("fused" if fuse else "unfused")
+        cfg = repro_torch.CholeskyConfig(
+            tb=tb, policy="v3", ladder="gpu", eps_target=eps_target,
+            use_pallas=True, compute_dtype=torch.float32, ndev=MD_NDEV,
+            grid=(MD_NDEV, 1), lookahead=0, fuse_columns=fuse).specialize(a)
+        solver = repro_torch.plan(n, cfg).compile(device=devices)
+        sched = solver.schedule
+        log(f"{tag}: n={n} tb={tb} grid {sched.grid} lookahead "
+            f"{sched.lookahead} ops {sum(len(st) for st in sched.streams)} "
+            f"(BCAST {sched.count(OpKind.BCAST)}, RECV "
+            f"{sched.count(OpKind.RECV)})")
+        secs, launches = _md_twice(solver, a, tag)
+        segs = solver._executor.multidevice._segments
+        if fuse:
+            groups = len({(i, o.k) for i, (_d, _r, body, _b) in
+                          enumerate(segs) for o in body
+                          if o.kind in chol._FUSABLE})
+            ref = reference_fused_groups(segs)
+            per_op = sum(v for k, v in launches.items() if k in _OP_OF)
+            total = launches["fused_column_step"] + per_op
+            log(f"{tag}: {launches['fused_column_step']} fused launches "
+                f"over {groups} segment groups; the reference's grouping "
+                f"{ref}; per-op launches {per_op}")
+            # the reference splits out-of-core columns where a LOAD reuses
+            # a finished row's slot, and runs most parts per op; the port
+            # retires that row and launches the column whole (ROADMAP
+            # queue 3 item 4): no more launches in all, nor per-op ones
+            require(0 < launches["fused_column_step"] <= groups
+                    and total <= ref["fused_column"] + ref["tile_op"]
+                    and per_op <= ref["tile_op"]
+                    and launches["flash_attention"] == 0,
+                    f"{tag}: launches {launches}")
+        else:
+            want = {name: sched.count(OpKind[_OP_OF[name]])
+                    if name in _OP_OF else 0 for name in launches}
+            require(launches == want, f"{tag}: launches {launches} != {want}")
+        io = _md_transfers(tag, solver, 4)
+        acc = _accuracy(tag, solver, a, lref, eps_target, g)
+        single_s = single["fused" if fuse else "main"]["factor_s"]
+        log(f"{tag} [{card}]: factor {secs[0]:.3f}s, {secs[1]:.3f}s across "
+            f"{MD_NDEV} logical devices; phase 4 on one device "
+            f"{single_s:.3f}s")
+        out["A_fused" if fuse else "A_unfused"] = {
+            "n": n, "tb": tb, "factor_s": secs, "launches": launches,
+            "single_device_factor_s": single_s, "transfers": io, **acc}
+        del solver
+    del a, lref
+
+    # config B: mixed precision on a (2, 2) grid with lookahead 1
+    rho = 0.99
+    idx = torch.arange(mxp_n, device=dev, dtype=torch.float64)
+    a = rho ** (idx[:, None] - idx[None, :]).abs()
+    del idx
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, policy="v3", ladder="gpu-scaled", eps_target=eps_target,
+        use_pallas=True, ndev=MD_NDEV, grid=(2, 2),
+        lookahead=1).specialize(a)
+    hist = cfg.plan.histogram()
+    require(hist.get("f8e4m3s", 0) > 0, f"md B plan {hist} has no f8e4m3s")
+    sched = repro_torch.plan(mxp_n, cfg).schedule
+    landing = sum(1 for st in sched.streams for o in st
+                  if o.kind is OpKind.RECV and o.slot_c < 0)
+    t0 = time.perf_counter()
+    lnp = torch.from_numpy(np.tril(from_tiles(chol.run_multidevice_numpy(
+        to_tiles(a.cpu().numpy(), tb), sched)))).to(dev)
+    replay_s = time.perf_counter() - t0
+    log(f"md B: KMS rho={rho} n={mxp_n} tb={tb} grid (2, 2) lookahead 1 "
+        f"gpu-scaled histogram {hist}; {landing} host-landing RECVs; the "
+        f"NumPy replay {replay_s:.2f}s on the host")
+    lref = torch.linalg.cholesky(a)
+    kappa = ((1 + rho) / (1 - rho)) ** 2
+    factors = {}
+    for fuse in (False, True):
+        tag = "md B " + ("fused" if fuse else "unfused")
+        solver = repro_torch.plan(mxp_n, dataclasses.replace(
+            cfg, fuse_columns=fuse)).compile(device=devices)
+        secs, launches = _md_twice(solver, a, tag)
+        if fuse:
+            # f64 tiles take the stock ops, so only the fused step launches
+            ref = reference_fused_groups(
+                solver._executor.multidevice._segments)
+            require(0 < launches["fused_column_step"]
+                    <= ref["fused_column"] + ref["tile_op"],
+                    f"{tag}: launches {launches}, reference {ref}")
+        io = _md_transfers(tag, solver, 8)
+        require(io["executed_recv_d2h_ops"] == landing,
+                f"{tag}: host-landing RECVs {io['executed_recv_d2h_ops']}")
+        lf = _dense_factor(solver, mxp_n)
+        factors[fuse] = lf
+        d_np = float((lf - lnp).abs().max())
+        _, by_class, _ = _tile_check(lf, lnp, cfg.plan, tb)
+        backward = float(torch.linalg.norm(lf @ lf.T - a)
+                         / torch.linalg.norm(a))
+        forward = float((lf - lref).abs().max() / lref.abs().max())
+        # the same plan on one device, for its time beside these
+        one = repro_torch.plan(mxp_n, dataclasses.replace(
+            cfg, ndev=1, grid=None, lookahead=None,
+            fuse_columns=fuse)).compile(device=dev)
+        single_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            one.factor(a, materialize=False)
+            single_s.append(time.perf_counter() - t0)
+        del one
+        log(f"{tag} [{card}]: max|L - L_replay| = {d_np:.3e} (bound "
+            f"{MD_MXP_TOL:.0e}), max tile error / max|L| by class "
+            f"{by_class}; ||A - LL^T||/||A|| = {backward:.3e} (bound "
+            f"{eps_target:.0e}); max|L - chol64(A)|/max|L| = {forward:.3e} "
+            f"(bound {kappa * eps_target:.1e}); factor {secs[0]:.3f}s, "
+            f"{secs[1]:.3f}s; the same plan on one device {single_s[0]:.3f}s, "
+            f"{single_s[1]:.3f}s")
+        require(d_np < MD_MXP_TOL, f"{tag}: vs the NumPy replay {d_np}")
+        require(math.isfinite(backward) and backward <= eps_target,
+                f"{tag}: backward error {backward}")
+        require(math.isfinite(forward) and forward <= kappa * eps_target,
+                f"{tag}: forward error {forward}")
+        out["B_fused" if fuse else "B_unfused"] = {
+            "n": mxp_n, "tb": tb, "precision_histogram": hist,
+            "factor_s": secs, "launches": launches, "transfers": io,
+            "vs_numpy_replay_max": d_np,
+            "vs_numpy_replay_by_class": by_class, "backward_err": backward,
+            "forward_err": forward, "single_device_factor_s": single_s}
+        del solver
+    d_fu = float((factors[True] - factors[False]).abs().max())
+    log(f"md B: max|L_fused - L_unfused| = {d_fu:.3e} (bound "
+        f"{MD_MXP_TOL:.0e})")
+    require(d_fu < MD_MXP_TOL, f"md B fused vs unfused {d_fu}")
+
+    # the controls, each swapped in here and not through an option of the
+    # package; the check against the NumPy replay must reject both
+    make_wire = chol._make_wire
+    controls = {
+        "every wire through e4m3":
+            lambda tile, cls: make_wire(tile, "f8e4m3"),
+        "f64 wires as f32":
+            lambda tile, cls: make_wire(tile, "f32" if cls == "f64" else cls)}
+    out["B_control_max"] = {}
+    for what, swap in controls.items():
+        chol._make_wire = swap
+        try:
+            solver = repro_torch.plan(mxp_n, cfg).compile(device=devices)
+            solver.factor(a, materialize=False)
+            lc = _dense_factor(solver, mxp_n)
+        finally:
+            chol._make_wire = make_wire
+        ctrl = float((lc - lnp).abs().max())
+        log(f"md B: control, {what}: max|L - L_replay| = {ctrl:.3e} (must "
+            f"reach {MD_MXP_TOL:.0e})")
+        require(not ctrl < MD_MXP_TOL,
+                f"md B check passes the control '{what}' ({ctrl})")
+        out["B_control_max"][what] = ctrl
+        del solver
+    out.update({"B_fused_vs_unfused_max": d_fu, "B_replay_s": replay_s,
+                "mxp_tol": MD_MXP_TOL})
+    return out
 
 
 # flash cases: (tag, B, S, T, H, KV, hd, dtype, causal); the first is
@@ -1774,7 +2124,10 @@ def main() -> int:
     del a, lref
     mxp = mxp_fused(args.mxp_n, args.tb, dev)   # 5. mixed precision
     geo_res = geo(args.geo_n, args.tb, dev, args.seed, card)   # 6. geo
-    torch.cuda.empty_cache()                    # 7. LM serving
+    torch.cuda.empty_cache()                    # 7. multi-device
+    md = multidevice(args.n, MD_MXP_N, args.tb, dev, args.seed, card,
+                     {"main": main, "fused": fused})
+    torch.cuda.empty_cache()                    # 8. LM serving
     log(f"lm: device memory in use before the model "
         f"{torch.cuda.memory_allocated(dev) / 2 ** 20:.0f} MiB")
     checks.update(flash_checks(dev, g))
@@ -1782,6 +2135,8 @@ def main() -> int:
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
+        md_run = md["A_fused" if name == "fused_column_step"
+                    else "A_unfused"]
         if name == "fused_column_step":
             row = checks[f"{name}[float32,R=32,K=32,diag=1]"]
             launches = fused["launches"][name]
@@ -1798,7 +2153,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+            "multidevice_launches": md_run["launches"][name]})
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
                     "split", "device_ms", "library_device_ms", "geometry",
                     "grid", "geo_f64_launches", "geo_f64_mid_ms"):
@@ -1808,10 +2164,11 @@ def main() -> int:
     outdir.mkdir(exist_ok=True)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
-         "fused": fused, "mxp": mxp, "geo": geo_res, "lm": lm,
+         "fused": fused, "mxp": mxp, "geo": geo_res, "multidevice": md,
+         "lm": lm,
          "kernels": kernels}, indent=1))
     log(card)
-    print(json.dumps({"kernels": kernels}))     # 8. kernels line
+    print(json.dumps({"kernels": kernels}))     # 9. kernels line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

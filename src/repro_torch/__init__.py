@@ -7,9 +7,11 @@ Hopper kernels for the tile ops.  It imports ``torch``, numpy and scipy,
 never ``jax`` or ``repro``.  Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 
-The port covers the single-device Cholesky path: tiling, precision plans,
-schedules, the op-stream executor (op by op, or one fused launch per column
-step with ``fuse_columns``), blocked solves, the four per-op kernels (GEMM,
+The port covers the Cholesky path: tiling, precision plans, schedules, the
+op-stream executor (op by op, or one fused launch per column step with
+``fuse_columns``) on one device or, with ``ndev > 1``, on one CUDA stream
+per logical device with class-precision broadcast wires (1D and 2D grids,
+lookahead), blocked solves, the four per-op kernels (GEMM,
 SYRK, TRSM, POTRF) and the fused column-step kernel.  Beside it: the
 reference's NumPy replays (``backend="numpy"``, single- and multi-device
 schedules, on the host), the analytics (byte volumes, the event simulators
@@ -30,7 +32,9 @@ from repro_torch.core.analytics import (HW, HardwareModel, ascii_trace,
                                         volume_report_multi)
 from repro_torch.core.api import (CholeskyConfig, CholeskyPlan, OOCSolver,
                                   clear_plan_cache, plan, plan_cache_stats)
-from repro_torch.core.cholesky import make_torch_executor, plan_for_matrix
+from repro_torch.core.cholesky import (MultiDeviceTorchExecutor,
+                                       make_multidevice_torch_executor,
+                                       make_torch_executor, plan_for_matrix)
 from repro_torch.core.precision import (LADDERS, PrecisionPlan,
                                         assign_precision, uniform_plan)
 from repro_torch.core.schedule import (MultiDeviceSchedule, Op, OpKind,
@@ -46,7 +50,8 @@ __all__ = [
     "__version__",
     "CholeskyConfig", "CholeskyPlan", "OOCSolver", "plan", "clear_plan_cache",
     "plan_cache_stats", "config_from_reference", "params_from_reference",
-    "make_torch_executor", "plan_for_matrix",
+    "make_torch_executor", "plan_for_matrix", "MultiDeviceTorchExecutor",
+    "make_multidevice_torch_executor",
     "LADDERS", "PrecisionPlan", "assign_precision", "uniform_plan",
     "MultiDeviceSchedule", "Op", "OpKind", "Schedule",
     "build_multidevice_schedule", "build_schedule",

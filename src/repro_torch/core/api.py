@@ -15,13 +15,16 @@ differs where PyTorch does: ``compute_dtype`` is a torch dtype (``None``
 means float64, the reference's x64 default), ``backend`` is ``"auto"``,
 ``"torch"`` or ``"numpy"``, and ``use_pallas`` keeps its name but selects
 the hand-written Hopper tile kernels.  There is no jit here: ``compile()``
-builds the op-by-op executor once per plan and device.
+builds the op-by-op executor once per plan and device.  With ``ndev > 1``
+it builds the multi-device executor over ``ndev`` logical devices: the
+first ``ndev`` cards, a sequence of devices (one card may repeat, each
+logical device getting a stream of its own), or ``ndev`` CPU handles.
 
 ``backend="numpy"`` runs the reference's NumPy replays on the host, for one
-device or for the multi-device schedules of ``ndev``/``grid``/``lookahead``
-(the torch executor is single-device).  It runs only when asked for:
-``"auto"`` resolves to ``"torch"``.  Options whose slice is not ported yet
-(the multi-device executor, the disk tier, the autotuner) raise
+device or for the multi-device schedules of ``ndev``/``grid``/``lookahead``.
+It runs only when asked for: ``"auto"`` resolves to ``"torch"``, also when
+fewer than ``ndev`` cards are visible (that raises at ``compile()``).
+Options whose slice is not ported yet (the disk tier, the autotuner) raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
@@ -145,11 +148,6 @@ class CholeskyConfig:
         if self.tb == 0 or self.policy == "auto":
             raise _not_ported("the autotuner (tb=0, policy='auto')",
                               "queue 1, item 9")
-        # a grid or a lookahead > 0 has needed ndev > 1 above
-        if self.ndev > 1 and self.backend != "numpy":
-            raise _not_ported("the multi-device executor (ndev > 1, grid, "
-                              "lookahead; backend='numpy' replays them on "
-                              "the host)", "queue 1, item 6")
         if self.host_slots > 0:
             raise _not_ported("the disk tier (host_slots > 0)",
                               "queue 1, item 7")
@@ -223,6 +221,13 @@ class CholeskyConfig:
         return dataclasses.replace(self, eps_target=None, plan=pplan)
 
 
+def _need_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU")
+
+
 def _resolve_device(device, backend: str) -> torch.device:
     if backend == "numpy":
         device = torch.device("cpu" if device is None else device)
@@ -231,21 +236,59 @@ def _resolve_device(device, backend: str) -> torch.device:
                              f"solves on the CPU, got device {device}")
         return device
     device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on CUDA by default and no CUDA device is "
-            "available; pass device='cpu' to run on the CPU")
+    if device.type == "cuda":
+        _need_cuda()
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
 
 
+def logical_devices(device, ndev: int) -> tuple:
+    """The ``ndev`` logical devices of a multi-device executor.
+
+    ``"cuda"`` (or None): the first ``ndev`` visible cards, RuntimeError
+    when fewer are visible.  ``"cpu"``: ``ndev`` CPU handles.  A sequence
+    of ``ndev`` devices names each one; a card may repeat, and its logical
+    devices then share it, each on a stream of its own."""
+    if device is None or isinstance(device, (str, torch.device)):
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cpu":
+            return (device,) * ndev
+        if device.type != "cuda" or device.index is not None:
+            raise ValueError(
+                f"ndev={ndev} takes 'cuda' (the first {ndev} cards), 'cpu' "
+                f"or a sequence of {ndev} devices, got {device}")
+        _need_cuda()
+        visible = torch.cuda.device_count()
+        if visible < ndev:
+            raise RuntimeError(
+                f"ndev={ndev} needs {ndev} CUDA devices, found {visible}; "
+                f"pass a sequence of {ndev} devices to run several logical "
+                f"devices on one card")
+        return tuple(torch.device("cuda", i) for i in range(ndev))
+    devs = tuple(torch.device(d) for d in device)
+    if len(devs) != ndev:
+        raise ValueError(f"ndev={ndev} needs {ndev} devices, got "
+                         f"{len(devs)}")
+    kinds = {d.type for d in devs}
+    if kinds == {"cpu"}:
+        return devs
+    if kinds != {"cuda"}:
+        raise ValueError(f"the logical devices must all be CUDA or all CPU, "
+                         f"got {devs}")
+    _need_cuda()
+    return tuple(torch.device("cuda", torch.cuda.current_device()
+                              if d.index is None else d.index) for d in devs)
+
+
 class OOCSolver:
-    """Solver over one compiled ``(n, config)`` plan on one device.
+    """Solver over one compiled ``(n, config)`` plan.
 
     ``factor(a)`` fills this solver's host tile store and replays the
-    plan's schedule; ``solve``/``solve_lower``/``logdet`` run blocked
-    substitution against that store on the solver's device;
+    plan's schedule (across the logical devices with ``ndev > 1``, whose
+    slabs are rows of that store); ``solve``/``solve_lower``/``logdet``
+    run blocked substitution against that store on the solver's (first)
+    device;
     ``simulate(hw)``/``volume()`` expose the plan's analytics.  Each
     ``compile()`` returns a fresh solver: the executor is shared through
     the plan, the factored store is not."""
@@ -256,6 +299,7 @@ class OOCSolver:
         self._tiles = None          # host tile store (compute dtype)
         self._factored = False      # the store holds a finished factor
         self._last_io = None        # executed transfers of the last factor
+        self._last_wires = None     # executed BCAST/RECV of the last factor
         self._factor_calls = 0
         self._solve_calls = 0
 
@@ -269,6 +313,7 @@ class OOCSolver:
 
     @property
     def device(self) -> torch.device:
+        """The device of the solves: the first logical device."""
         return self._executor.device
 
     @property
@@ -287,7 +332,9 @@ class OOCSolver:
         ``solve_calls`` count this solver's own use.  ``transfers`` holds
         the schedule's class-precision LOAD/STORE volumes and, after a
         ``factor()``, the executed copies, which carry compute-dtype
-        bytes."""
+        bytes, and with ``ndev > 1`` the executed BCAST/RECV counters
+        (:meth:`transfer_stats`), the H2D of wires cut from a slab
+        (``wire_h2d``) and the D2H of host-landing RECVs (``recv_d2h``)."""
         sched = self._plan.schedule
         transfers = {
             "loads": sched.count(OpKind.LOAD),
@@ -297,9 +344,10 @@ class OOCSolver:
         }
         if self.config.ndev > 1:
             transfers["bcast_bytes"] = sched.bcast_bytes()
-        if self._last_io is not None:
-            transfers.update({"executed_" + k: v
-                              for k, v in self._last_io.items()})
+        for done in (self._last_io, self._last_wires):
+            if done is not None:
+                transfers.update({"executed_" + k: v
+                                  for k, v in done.items()})
         return {"executor_builds": self._plan.executor_builds,
                 "factor_calls": self._factor_calls,
                 "solve_calls": self._solve_calls,
@@ -343,7 +391,10 @@ class OOCSolver:
             host[i].copy_(rows.reshape(tb, nt, tb)
                           .permute(1, 0, 2))
         self._last_io = self._executor.run(host)
-        if self.device.type == "cuda":
+        if self._executor.multidevice is not None:
+            self._last_wires = dict(
+                self._executor.multidevice.last_transfer_stats)
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._factored = True
         self._factor_calls += 1
@@ -418,19 +469,30 @@ class OOCSolver:
         from .solve import logdet_tiles
         return logdet_tiles(self._factored_tiles())
 
+    def transfer_stats(self) -> Optional[dict]:
+        """Executed BCAST/RECV op and byte counters of this solver's last
+        ``factor()`` on the multi-device executor (None on one device, on
+        the numpy backend and before a factor); cross-check against the
+        schedule with :func:`repro_torch.core.analytics.
+        crosscheck_executed_volume`."""
+        return None if self._last_wires is None else dict(self._last_wires)
+
 
 class _CompiledExecutor:
-    """The per-plan executor for one device and compute dtype, shared by
-    every solver of the plan.  Holds no factored data.  On the numpy
-    backend it builds nothing: ``replay`` runs the plan's NumPy replay."""
+    """The per-plan executor for one device (or ``ndev`` logical devices)
+    and compute dtype, shared by every solver of the plan.  Holds no
+    factored data.  On the numpy backend it builds nothing: ``replay`` runs
+    the plan's NumPy replay."""
 
-    def __init__(self, plan: "CholeskyPlan", device: torch.device):
-        from .cholesky import (make_torch_executor, run_multidevice_numpy,
+    def __init__(self, plan: "CholeskyPlan", devices: tuple):
+        from .cholesky import (make_multidevice_torch_executor,
+                               make_torch_executor, run_multidevice_numpy,
                                run_schedule_numpy)
         cfg = plan.config
-        self.device = device
+        self.devices = devices
+        self.device = devices[0]
         self.dtype = cfg.resolved_compute_dtype
-        self.run = self.replay = None
+        self.run = self.replay = self.multidevice = None
         if cfg.resolved_backend() == "numpy":
             if cfg.ndev > 1:
                 self.replay = lambda tiles: run_multidevice_numpy(
@@ -439,10 +501,15 @@ class _CompiledExecutor:
                 self.replay = lambda tiles: run_schedule_numpy(
                     tiles, plan.single_schedule())
             return
-        self.run = make_torch_executor(plan.single_schedule(), self.dtype,
-                                       use_pallas=cfg.use_pallas,
-                                       device=device,
-                                       fuse_columns=cfg.fuse_columns)
+        if cfg.ndev > 1:
+            self.multidevice = self.run = make_multidevice_torch_executor(
+                plan.schedule, self.dtype, use_pallas=cfg.use_pallas,
+                devices=devices, fuse_columns=cfg.fuse_columns)
+        else:
+            self.run = make_torch_executor(plan.single_schedule(), self.dtype,
+                                           use_pallas=cfg.use_pallas,
+                                           device=self.device,
+                                           fuse_columns=cfg.fuse_columns)
         plan.executor_builds += 1
 
 
@@ -469,13 +536,19 @@ class CholeskyPlan:
     def compile(self, device=None) -> OOCSolver:
         """A fresh solver over this plan's executor on ``device``
         (``"cuda"`` unless the caller asks for ``"cpu"``; raises when CUDA
-        is asked for and absent).  The executor is built on first call and
-        rebuilt only when the device changes.  The numpy backend needs no
+        is asked for and absent).  With ``ndev > 1`` on the torch backend
+        ``device`` is one device or a sequence of ``ndev``
+        (:func:`logical_devices`).  The executor is built on first call and
+        rebuilt only when the devices change.  The numpy backend needs no
         card: its solver runs on the CPU."""
-        device = _resolve_device(device, self.config.resolved_backend())
+        backend = self.config.resolved_backend()
+        if self.config.ndev > 1 and backend == "torch":
+            devices = logical_devices(device, self.config.ndev)
+        else:
+            devices = (_resolve_device(device, backend),)
         with self._compile_lock:
-            if self._executor is None or self._executor.device != device:
-                self._executor = _CompiledExecutor(self, device)
+            if self._executor is None or self._executor.devices != devices:
+                self._executor = _CompiledExecutor(self, devices)
             return OOCSolver(self, self._executor)
 
     def simulate(self, hw, link_bw=None, record_timeline: bool = False):

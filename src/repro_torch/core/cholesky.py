@@ -16,20 +16,29 @@ by op, on one stream:
 
 Transfers carry compute-dtype bytes, as the reference's do.
 
+``MultiDeviceTorchExecutor`` runs a multi-device schedule the same way on
+one stream per logical device, each over the host slab of its grid row,
+with the BCAST/RECV edges as class-precision wires ordered by CUDA events
+(port of the reference's ``MultiDeviceJaxExecutor``).
+
 It also holds the reference's NumPy replays, ``run_schedule_numpy`` and
 ``run_multidevice_numpy`` (``backend="numpy"``): host oracles that need no
 card, bitwise the reference's on the same schedule.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
 from ..kernels import ops as kops
-from ..kernels.ref import _round
+from ..kernels.ref import _CLASS_DTYPES, _fp8_scale, _round
 from .precision import (PrecisionPlan, assign_precision, tile_amax,
                         tile_norms, uniform_plan)
 from .schedule import HOST_IO, MultiDeviceSchedule, Op, OpKind, Schedule
+from .tiling import grid_owner
 
 
 def _make_kernel_fns(use_pallas: bool) -> dict:
@@ -157,10 +166,16 @@ def run_multidevice_numpy(host_tiles: np.ndarray,
 # The torch executor
 # --------------------------------------------------------------------------
 
+def _host_tile(host: torch.Tensor, op: Op, lrow=None) -> torch.Tensor:
+    """The host store's view of tile ``(op.i, op.j)``; ``lrow`` maps a
+    global tile row to its row in a device's slab (None: the full store)."""
+    return host[op.i if lrow is None else lrow[op.i], op.j]
+
+
 def _load(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
-          io: dict) -> None:
+          io: dict, lrow=None) -> None:
     s = slots[op.slot_c]
-    s.copy_(host[op.i, op.j], non_blocking=True)
+    s.copy_(_host_tile(host, op, lrow), non_blocking=True)
     r = _round(s, lad[op.cls])
     if r is not s:
         s.copy_(r)
@@ -169,29 +184,30 @@ def _load(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
 
 
 def _write_host(host: torch.Tensor, op: Op, tile: torch.Tensor,
-                io: dict) -> None:
-    host[op.i, op.j].copy_(tile, non_blocking=True)
+                io: dict, lrow=None) -> None:
+    _host_tile(host, op, lrow).copy_(tile, non_blocking=True)
     io["d2h_ops"] += 1
     io["d2h_bytes"] += tile.numel() * tile.element_size()
 
 
 def _store(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
-           io: dict) -> None:
+           io: dict, lrow=None) -> None:
     s = slots[op.slot_c]
     r = _round(s, lad[op.cls])
     if r is not s:
         s.copy_(r)
-    _write_host(host, op, s, io)
+    _write_host(host, op, s, io, lrow)
 
 
 def _interpret_op(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
-                  kf: dict, io: dict) -> None:
-    """Run one op against the host store and the slot buffer, in place."""
+                  kf: dict, io: dict, lrow=None) -> None:
+    """Run one op against the host store (a device's slab, with ``lrow``)
+    and the slot buffer, in place."""
     kind = op.kind
     if kind is OpKind.LOAD:
-        _load(host, slots, op, lad, io)
+        _load(host, slots, op, lad, io, lrow)
     elif kind is OpKind.STORE:
-        _store(host, slots, op, lad, io)
+        _store(host, slots, op, lad, io, lrow)
     elif kind is OpKind.SYRK:
         slots[op.slot_c] = kf["syrk"](slots[op.slot_c], slots[op.slot_a])
     elif kind is OpKind.GEMM:
@@ -432,8 +448,9 @@ def _flush_group_fused(group, cuts, values, lad, kf):
     return host_writes
 
 
-def _run_ops_fused(ops, host, slots, lad, kf, io) -> None:
-    """Run an op stream with column-step fusion, in place.
+def _run_ops_fused(ops, host, slots, lad, kf, io, lrow=None) -> None:
+    """Run an op stream with column-step fusion, in place (on a device's
+    slab with ``lrow``, as :func:`_interpret_op`).
 
     Compute ops of one column accumulate into a pending group launched as
     one kernel.  Each op's operands are taken at its stream position: a
@@ -471,7 +488,7 @@ def _run_ops_fused(ops, host, slots, lad, kf, io) -> None:
     def run(upto):
         """Run ``group[:upto]`` and keep the rest pending."""
         for o, r in _flush_group_fused(group[:upto], cuts, values, lad, kf):
-            _write_host(host, o, r, io)
+            _write_host(host, o, r, io, lrow)
         del group[:upto]
         cuts.clear()
         for t, pos in list(dtiles.items()):
@@ -511,7 +528,7 @@ def _run_ops_fused(ops, host, slots, lad, kf, io) -> None:
                     # what came since its last flush)
                     cuts.append(len(group))
                     recent.clear()
-            _load(host, slots, op, lad, io)
+            _load(host, slots, op, lad, io, lrow)
         elif op.kind is OpKind.STORE:
             if group:
                 # ride in the group: the rounding applies at this exact
@@ -520,7 +537,7 @@ def _run_ops_fused(ops, host, slots, lad, kf, io) -> None:
                 dtiles[(op.i, op.j)] = len(group)
                 group.append((op, None, output(op.slot_c)))
             else:
-                _store(host, slots, op, lad, io)
+                _store(host, slots, op, lad, io, lrow)
         elif op.kind in _FUSABLE:
             if group and op.k != group[0][0].k:
                 flush()
@@ -562,16 +579,290 @@ def make_torch_executor(sched: Schedule, compute_dtype=torch.float64,
             raise ValueError(f"host store must be a CPU {compute_dtype} "
                              f"tensor, got {host.dtype} on {host.device}")
         io = {"h2d_ops": 0, "h2d_bytes": 0, "d2h_ops": 0, "d2h_bytes": 0}
-        slots = torch.zeros((nslots, tb, tb), dtype=compute_dtype,
-                            device=device)
-        if fuse_columns:
-            _run_ops_fused(sched.ops, host, slots, lad, kf, io)
-            return io
-        for op in sched.ops:
-            _interpret_op(host, slots, op, lad, kf, io)
+        # the kernels launch on the current card: issue on ``device``'s
+        with (torch.cuda.device(device) if device.type == "cuda"
+              else contextlib.nullcontext()):
+            slots = torch.zeros((nslots, tb, tb), dtype=compute_dtype,
+                                device=device)
+            if fuse_columns:
+                _run_ops_fused(sched.ops, host, slots, lad, kf, io)
+                return io
+            for op in sched.ops:
+                _interpret_op(host, slots, op, lad, kf, io)
         return io
 
     return run
+
+
+# --------------------------------------------------------------------------
+# The multi-device executor (one CUDA stream per logical device)
+# --------------------------------------------------------------------------
+
+def _wire_dtype(cls_name: str) -> torch.dtype:
+    """Dtype a broadcast tile travels in: its precision class (the
+    interconnect carries class-precision bytes, paper §IV-C).  An f64
+    class travels as f64, as the reference's does under x64."""
+    return _CLASS_DTYPES[cls_name]
+
+
+def _make_wire(tile: torch.Tensor, cls_name: str) -> tuple:
+    """Round a finalized tile onto the interconnect wire: a fresh
+    ``(payload, scale)`` pair, the payload in the class dtype.  The scaled
+    FP8 class carries its power-of-two scale (a 0-d tensor); every other
+    class has ``scale=None``.  The payload goes through the port's class
+    round, so an e4m3 value past the band is NaN, as the reference's cast
+    gives.  Byte accounting counts the payload only."""
+    if cls_name == "f8e4m3s":
+        s = _fp8_scale(tile.abs().amax())
+        return _round(tile * s, "f8e4m3").to(torch.float8_e4m3fn), s
+    return _round(tile, cls_name).to(_wire_dtype(cls_name), copy=True), None
+
+
+def _unwire(wire: tuple, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Promote a received wire back to the compute dtype, inverting the
+    scaled-FP8 scale when one rode along."""
+    payload, scale = wire
+    t = payload.to(compute_dtype)
+    return t if scale is None else t / scale
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _wire_key(op: Op) -> tuple:
+    """A wire's name: with eager panel pushes one tile can be on two wires
+    at once (row-scoped now, panel-scoped for a later column), so the
+    tile alone is not a key."""
+    return op.i, op.j, op.k, op.src
+
+
+class MultiDeviceTorchExecutor:
+    """Replay a :class:`MultiDeviceSchedule` on ``ndev`` logical devices.
+
+    Port of the reference's ``MultiDeviceJaxExecutor``.  Each logical
+    device has its own CUDA stream, its slot buffer on its card and its
+    host slab: the CPU rows of its grid row, in the compute dtype, pinned
+    for a card.  A 1D grid's slabs are views of the caller's store; a 2D
+    grid replicates each slab across its ``q`` grid-row peers, the first
+    peer's being the view and the others' allocated at the first call and
+    kept (``q - 1`` copies of the store in all).  The streams run as segments, one per
+    :meth:`MultiDeviceSchedule.dispatch_chunks` entry (with
+    ``fuse_columns``, recv-free chunks merge into the segment before them,
+    as the reference merges them), each issued under its device and
+    stream, so the kernels launch there.
+
+    A segment first lands its RECVs, then runs its ops as the
+    single-device executor does, then cuts the wires its BCASTs publish
+    and records an event.  A wire is cut from the sender's host slab at
+    the segment's end, as the reference cuts it: the tile comes back with
+    an H2D on the sender's stream, counted apart from the LOADs.  A RECV
+    waits on the sender's event, copies the wire to its card (or reads it
+    on the same card), unwires it into its slot, or for a host-landing
+    RECV (``slot_c < 0``) into its slab with a D2H.  A wire is dropped
+    after its last receiver.
+
+    Numerics are op for op those of :func:`run_multidevice_numpy`.
+    ``last_transfer_stats`` holds the executed BCAST/RECV op and byte
+    counters of the last run, as the reference counts them.
+    """
+
+    def __init__(self, msched: MultiDeviceSchedule,
+                 compute_dtype=torch.float64, use_pallas: bool = False,
+                 devices=None, fuse_columns: bool = False):
+        if msched.ndev < 2:
+            raise ValueError(
+                f"MultiDeviceTorchExecutor needs ndev >= 2 (got "
+                f"{msched.ndev}); use make_torch_executor for one device")
+        _no_spill(msched.host_slots)
+        from .api import logical_devices
+        devices = logical_devices(devices, msched.ndev)
+        self.msched = msched
+        self.devices = devices
+        self.dtype = compute_dtype
+        self.last_transfer_stats = None
+        self._kf = _make_kernel_fns(use_pallas)
+        self._fuse = fuse_columns
+        p, q = msched.grid
+        self._rows = [[i for i in range(msched.nt) if i % p == d // q]
+                      for d in range(msched.ndev)]
+        self._local_row = [{g: l for l, g in enumerate(rows)}
+                           for rows in self._rows]
+        self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
+                         else None for d in devices]
+        self._replicas: dict = {}   # d -> its pinned slab (2D grid peers)
+        self._lock = threading.Lock()   # solvers of one plan share both
+        self._segments = self._build_segments()
+
+    def _build_segments(self) -> list:
+        """``(device, RECVs, body, BCASTs)`` per segment."""
+        msched = self.msched
+        nrecv: dict = {}
+        for stream in msched.streams:
+            for o in stream:
+                if o.kind is OpKind.RECV:
+                    nrecv[_wire_key(o)] = nrecv.get(_wire_key(o), 0) + 1
+        self._nrecv = nrecv
+        chunks = [(d, list(msched.streams[d][start:stop]))
+                  for d, start, stop, _k, _ph in msched.dispatch_chunks()]
+        if self._fuse:
+            # a recv-free chunk depends on nothing another device issued
+            # between it and the chunk before it (data crosses only on
+            # wires), so it may join that segment
+            merged: list = []
+            for d, ops in chunks:
+                if (merged and merged[-1][0] == d
+                        and not any(o.kind is OpKind.RECV for o in ops)):
+                    merged[-1][1].extend(ops)
+                else:
+                    merged.append((d, ops))
+            chunks = merged
+        return [(d, [o for o in ops if o.kind is OpKind.RECV],
+                 [o for o in ops
+                  if o.kind not in (OpKind.RECV, OpKind.BCAST)],
+                 [o for o in ops if o.kind is OpKind.BCAST])
+                for d, ops in chunks]
+
+    @contextlib.contextmanager
+    def _on(self, d: int):
+        """Issue on logical device ``d``: its card and its stream."""
+        s = self._streams[d]
+        if s is None:
+            yield
+            return
+        with torch.cuda.device(self.devices[d]), torch.cuda.stream(s):
+            yield
+
+    def _take(self, x, d: int):
+        """Wire tensor ``x`` for logical device ``d``'s stream: copied to
+        its card, or read where it is on the same card.  The allocator is
+        told which stream reads ``x`` so that dropping the wire is safe."""
+        if x is None or self._streams[d] is None:
+            return x
+        if x.device == self.devices[d]:
+            x.record_stream(self._streams[d])
+            return x
+        # a copy between cards runs on the source card's current stream
+        x.record_stream(torch.cuda.current_stream(x.device))
+        return x.to(self.devices[d], non_blocking=True)
+
+    def __call__(self, host: torch.Tensor) -> dict:
+        """Factor the ``[nt, nt, tb, tb]`` CPU store (compute dtype, pinned
+        for a card) in place; returns the executed transfer counters summed
+        over the devices.  Every stream has finished when it returns."""
+        with self._lock:
+            return self._factor(host)
+
+    def _factor(self, host: torch.Tensor) -> dict:
+        msched = self.msched
+        nt, tb, cdt = msched.nt, msched.tb, self.dtype
+        if (host.dtype != cdt or host.device.type != "cpu"
+                or tuple(host.shape) != (nt, nt, tb, tb)):
+            raise ValueError(
+                f"host store must be a CPU {cdt} [{nt}, {nt}, {tb}, {tb}] "
+                f"tensor, got {host.dtype} {tuple(host.shape)} on "
+                f"{host.device}")
+        p, q = msched.grid
+        lad = msched.plan.ladder
+        slabs, slots = [], []
+        for d, dev in enumerate(self.devices):
+            slab = host[d // q::p]
+            if d % q:                       # a grid-row peer's replica
+                if d not in self._replicas:
+                    self._replicas[d] = torch.empty(
+                        slab.shape, dtype=cdt, pin_memory=dev.type == "cuda")
+                slab = self._replicas[d].copy_(slab)
+            slabs.append(slab)
+            with self._on(d):
+                slots.append(torch.zeros(
+                    (max(msched.stream_nslots(d), 1), tb, tb), dtype=cdt,
+                    device=dev))
+        stats = dict.fromkeys(("bcast_ops", "recv_ops", "bcast_bytes",
+                               "recv_bytes"), 0)
+        io = dict.fromkeys(("h2d_ops", "h2d_bytes", "d2h_ops", "d2h_bytes",
+                            "wire_h2d_ops", "wire_h2d_bytes",
+                            "recv_d2h_ops", "recv_d2h_bytes"), 0)
+        wire_of: dict = {}                  # key -> (payload, scale, event)
+        pending = dict(self._nrecv)         # key -> receivers still to land
+        for d, recvs, body, bcasts in self._segments:
+            stream, lrow = self._streams[d], self._local_row[d]
+            with self._on(d):
+                for o in recvs:
+                    key = _wire_key(o)
+                    payload, scale, ready = wire_of[key]
+                    pending[key] -= 1
+                    if pending[key] == 0:   # last receiver: drop the wire
+                        del wire_of[key]
+                    if ready is not None:
+                        stream.wait_event(ready)
+                    payload = self._take(payload, d)
+                    t = _unwire((payload, self._take(scale, d)), cdt)
+                    if o.slot_c >= 0:
+                        slots[d][o.slot_c].copy_(t)
+                    else:
+                        _host_tile(slabs[d], o, lrow).copy_(
+                            t, non_blocking=True)
+                        io["recv_d2h_ops"] += 1
+                        io["recv_d2h_bytes"] += _nbytes(t)
+                    stats["recv_ops"] += 1
+                    stats["recv_bytes"] += _nbytes(payload)
+                if self._fuse:
+                    _run_ops_fused(body, slabs[d], slots[d], lad, self._kf,
+                                   io, lrow)
+                else:
+                    for o in body:
+                        _interpret_op(slabs[d], slots[d], o, lad, self._kf,
+                                      io, lrow)
+                made = []
+                for o in bcasts:
+                    tile = torch.empty((tb, tb), dtype=cdt,
+                                       device=self.devices[d])
+                    tile.copy_(_host_tile(slabs[d], o, lrow),
+                               non_blocking=True)
+                    io["wire_h2d_ops"] += 1
+                    io["wire_h2d_bytes"] += _nbytes(tile)
+                    payload, scale = _make_wire(tile, lad[o.cls])
+                    key = _wire_key(o)
+                    stats["bcast_ops"] += 1
+                    stats["bcast_bytes"] += _nbytes(payload) * self._nrecv[key]
+                    made.append((key, payload, scale))
+                ready = None
+                if made and stream is not None:
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+                for key, payload, scale in made:
+                    wire_of[key] = (payload, scale, ready)
+        for s in self._streams:
+            if s is not None:
+                s.synchronize()
+        if q > 1:
+            # slabs are replicated along grid rows and kept coherent by the
+            # row-scoped broadcast, except the diagonal tiles, which no
+            # later task reads and which are never shipped: read each one
+            # from its own diagonal owner
+            for k in range(nt):
+                if k % q:
+                    dv = grid_owner(k, k, p, q)
+                    host[k, k].copy_(slabs[dv][self._local_row[dv][k], k])
+        self.last_transfer_stats = stats
+        return io
+
+
+def make_multidevice_torch_executor(msched: MultiDeviceSchedule,
+                                    compute_dtype=torch.float64,
+                                    use_pallas: bool = False, devices=None,
+                                    fuse_columns: bool = False,
+                                    ) -> MultiDeviceTorchExecutor:
+    """Build the multi-device executor of ``msched``: a callable that
+    factors a ``[nt, nt, tb, tb]`` CPU store in place and returns the
+    executed transfer counters.  ``devices`` names the ``msched.ndev``
+    logical devices as ``CholeskyPlan.compile`` takes them
+    (:func:`repro_torch.core.api.logical_devices`; default: the first
+    ``ndev`` cards, RuntimeError when fewer are visible); see
+    :class:`MultiDeviceTorchExecutor`."""
+    return MultiDeviceTorchExecutor(msched, compute_dtype,
+                                    use_pallas=use_pallas, devices=devices,
+                                    fuse_columns=fuse_columns)
 
 
 def _tile_stats(a: torch.Tensor, tb: int):

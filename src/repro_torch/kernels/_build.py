@@ -128,6 +128,18 @@ def on_cuda(what: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+def require_current(what: str, t: torch.Tensor) -> None:
+    """Raise unless CUDA tensor ``t`` lies on the current CUDA device.  The
+    Cholesky wrappers launch on the current device's current stream (the
+    executors issue each device's ops under its device and stream), so a
+    kernel never launches on another card than its operands'."""
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"{what}: operands on {t.device} but the current CUDA device is "
+            f"cuda:{torch.cuda.current_device()}; launch under "
+            f"torch.cuda.device({t.device.index})")
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error (a refused launch never
     runs, and a later synchronize would not report it)."""

@@ -17,6 +17,10 @@
 // dtype codes, mirrored by repro_torch/kernels/_build.py (DTYPE_CODES)
 enum DType : int { DT_F32 = 0, DT_BF16 = 1, DT_F8E4M3 = 2 };
 
+// cards a process may launch on: the host code keeps per-card state (the
+// shared-memory opt-in, a function attribute of one card) in arrays this long
+constexpr int MAX_DEVICES = 64;
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

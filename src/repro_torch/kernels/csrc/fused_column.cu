@@ -415,15 +415,17 @@ template <typename T>
 static int occupancy(size_t smem, int* per_sm, int* sms) {
   const void* fn = reinterpret_cast<const void*>(&fused_column_kernel<T>);
   cudaError_t e;
-  static bool opted_in = false;         // once, not every launch
-  if (!opted_in && smem > 48 * 1024) {
+  int dev, coop;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  // a function attribute holds for the card it was set on: once a card
+  static bool opted_in[MAX_DEVICES] = {};
+  if (!opted_in[dev] && smem > 48 * 1024) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(fused_smem_bytes<T>(MAX_TB)));
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = true;
+    opted_in[dev] = true;
   }
-  int dev, coop;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
   if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return static_cast<int>(e);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);

@@ -145,13 +145,18 @@ int launch(const void* c, const void* a, const void* b, void* out, int m,
   constexpr size_t smem = smem_bytes<TAB>();
   auto kern = vec ? mxp_gemm_kernel<TAB, TC, true>
                   : mxp_gemm_kernel<TAB, TC, false>;
-  static bool opted_in[2] = {false, false};     // once a kernel, not a call
+  // a function attribute holds for the card it was set on: once a kernel
+  // and card, not a call
+  static bool opted_in[MAX_DEVICES][2] = {};
   cudaError_t e;
-  if (!opted_in[vec]) {
+  int dev;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[dev][vec]) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in[vec] = true;
+    opted_in[dev][vec] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles_m * tiles_n * split);

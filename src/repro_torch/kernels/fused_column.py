@@ -169,19 +169,19 @@ def fused_column_step(c_stack, hist, bhist, l_kk, cls_ids, *, ladder,
         raise ValueError("fused_column_step: the kernel stages 16-byte "
                          "vectors; every operand must start on a 16-byte "
                          "boundary")
+    _build.require_current("fused_column_step", c_stack)
     codes = (ctypes.c_int * r_tiles)(
         *[-1 if int(i) < 0 else CLASS_CODES[ladder[int(i)]]
           for i in cls_ids])
     out = torch.empty_like(c_stack)
     fn = _build.function("fused_column", "fused_column_step", _ARGS)
-    with torch.cuda.device(c_stack.device):
-        err = fn(c_stack.data_ptr(), hist.data_ptr(), bhist.data_ptr(),
-                 l_kk.data_ptr(), out.data_ptr(), r_tiles, k_hist, tb,
-                 int(with_diag), ctypes.addressof(codes),
-                 int(dt == torch.float64), smem_bytes(tb, dt),
-                 len(wave_items(r_tiles, tb, dt)),
-                 len(solve_items(r_tiles, tb, with_diag)),
-                 torch.cuda.current_stream(c_stack.device).cuda_stream)
+    err = fn(c_stack.data_ptr(), hist.data_ptr(), bhist.data_ptr(),
+             l_kk.data_ptr(), out.data_ptr(), r_tiles, k_hist, tb,
+             int(with_diag), ctypes.addressof(codes),
+             int(dt == torch.float64), smem_bytes(tb, dt),
+             len(wave_items(r_tiles, tb, dt)),
+             len(solve_items(r_tiles, tb, with_diag)),
+             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "fused_column_step")
     launches += 1
     return out

@@ -118,13 +118,13 @@ def _launch(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, split: int,
     benchmark (benchmarks/torch_gemm_geometry.py) passes another split."""
     global launches
     (m, k), n = a.shape, b.shape[0]
+    _build.require_current("mxp_gemm_update", c)
     out = torch.empty_like(c)
     fn = _build.function("mxp_gemm", "mxp_gemm_update", _ARGS)
-    with torch.cuda.device(c.device):
-        err = fn(c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 m, n, k, _build.DTYPE_CODES[a.dtype],
-                 _build.DTYPE_CODES[c.dtype], split, chunk,
-                 torch.cuda.current_stream(c.device).cuda_stream)
+    err = fn(c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+             m, n, k, _build.DTYPE_CODES[a.dtype],
+             _build.DTYPE_CODES[c.dtype], split, chunk,
+             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "mxp_gemm_update")
     launches += 1
     return out

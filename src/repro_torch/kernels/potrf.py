@@ -83,14 +83,14 @@ def potrf(a: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"potrf: no kernel for {a.dtype}")
     if n > MAX_N:
         raise ValueError(f"potrf: n={n} exceeds the kernel's {MAX_N}")
+    _build.require_current("potrf", a)
     out = torch.empty_like(a)
     work = out if a.dtype == torch.float32 else torch.empty(
         (n, n), dtype=torch.float32, device=a.device)
     fn = _build.function("potrf", "potrf", _ARGS)
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), work.data_ptr(), out.data_ptr(), n,
-                 _build.DTYPE_CODES[a.dtype], blocks_needed(n), smem_bytes(),
-                 torch.cuda.current_stream(a.device).cuda_stream)
+    err = fn(a.data_ptr(), work.data_ptr(), out.data_ptr(), n,
+             _build.DTYPE_CODES[a.dtype], blocks_needed(n), smem_bytes(),
+             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "potrf")
     launches += 1
     return out

@@ -79,14 +79,14 @@ def syrk_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     if a.dtype not in _DTYPES or c.dtype not in _DTYPES:
         raise TypeError(f"syrk_update: no kernel for a {a.dtype}, "
                         f"c {c.dtype}")
+    _build.require_current("syrk_update", c)
     out = torch.empty_like(c)
     split, chunk = split_for(k)
     fn = _build.function("syrk", "syrk_update", _ARGS)
-    with torch.cuda.device(c.device):
-        err = fn(c.data_ptr(), a.data_ptr(), out.data_ptr(), m, k,
-                 _build.DTYPE_CODES[a.dtype], _build.DTYPE_CODES[c.dtype],
-                 blocks(m), split, chunk,
-                 torch.cuda.current_stream(c.device).cuda_stream)
+    err = fn(c.data_ptr(), a.data_ptr(), out.data_ptr(), m, k,
+             _build.DTYPE_CODES[a.dtype], _build.DTYPE_CODES[c.dtype],
+             blocks(m), split, chunk,
+             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "syrk_update")
     launches += 1
     return out

@@ -63,13 +63,13 @@ def trsm(l: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"trsm: no kernel for l {l.dtype}, c {c.dtype}")
     if n > MAX_N:
         raise ValueError(f"trsm: n={n} exceeds the kernel's {MAX_N}")
+    _build.require_current("trsm", c)
     out = torch.empty_like(c)
     fn = _build.function("trsm", "trsm", _ARGS)
-    with torch.cuda.device(c.device):
-        err = fn(l.data_ptr(), c.data_ptr(), out.data_ptr(), m, n,
-                 _build.DTYPE_CODES[l.dtype], _build.DTYPE_CODES[c.dtype],
-                 ROWS, blocks(m), smem_bytes(n),
-                 torch.cuda.current_stream(c.device).cuda_stream)
+    err = fn(l.data_ptr(), c.data_ptr(), out.data_ptr(), m, n,
+             _build.DTYPE_CODES[l.dtype], _build.DTYPE_CODES[c.dtype],
+             ROWS, blocks(m), smem_bytes(n),
+             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "trsm")
     launches += 1
     return out

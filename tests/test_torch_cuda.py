@@ -898,3 +898,123 @@ def test_cuda_prefill_step_launches_flash_per_layer(cuda):
     assert (got[:, v:] <= -1e29).all()
     torch.testing.assert_close(got[:, :v].float(), want[:, :v].float(),
                                atol=4 * 2.0 ** -8 * 4, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# the multi-device executor, four logical devices on one card
+# --------------------------------------------------------------------------
+
+def _md_factor(cfg, n, a, devices):
+    """Factor ``a`` twice under ``cfg`` on ``devices``: (the solver, the
+    first factor's tiles, its launches); the second factor must equal the
+    first bitwise (a missing event wait would show as a difference)."""
+    import repro_torch
+    solver = repro_torch.plan(n, cfg).compile(device=devices)
+    ops.reset_counts()
+    solver.factor(a, materialize=False)
+    launches = ops.launch_counts()
+    first = solver.tiles.clone()
+    solver.factor(a, materialize=False)
+    assert torch.equal(first, solver.tiles)
+    return solver, first, launches
+
+
+@pytest.mark.cuda
+def test_cuda_multidevice_mxp_2d_grid_on_one_card(cuda):
+    """chip_smoke.py's config B at n = 2048, tb = 128 on ``[cuda:0] * 4``:
+    a KMS matrix on ``gpu-scaled`` (scaled FP8 wires), f64, grid (2, 2),
+    lookahead 1, unfused and fused, each held against the NumPy replay of
+    the same schedule within the reference's MxP cross-backend tolerance,
+    1e-8 (tests/test_backend_equivalence.py), and fused against unfused
+    within the same; executed transfers against the schedule through
+    ``crosscheck_executed_volume``."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.core.cholesky import run_multidevice_numpy
+    from repro_torch.core.tiling import from_tiles, to_tiles
+    n, tb = 2048, 128
+    idx = np.arange(n)
+    a = 0.99 ** np.abs(idx[:, None] - idx[None, :])
+    devices = [cuda] * 4
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, ladder="gpu-scaled", eps_target=1e-6, use_pallas=True,
+        ndev=4, grid=(2, 2), lookahead=1).specialize(a)
+    assert cfg.plan.histogram()["f8e4m3s"] > 0
+    want = run_multidevice_numpy(to_tiles(a, tb),
+                                 repro_torch.plan(n, cfg).schedule)
+    lw = np.tril(from_tiles(want))
+    factors = {}
+    for fuse in (False, True):
+        solver, tiles, launches = _md_factor(
+            dataclasses.replace(cfg, fuse_columns=fuse), n, a, devices)
+        if fuse:
+            assert launches["fused_column_step"] > 0
+        factors[fuse] = np.tril(from_tiles(tiles.numpy()))
+        assert np.abs(factors[fuse] - lw).max() < 1e-8, fuse
+        cc = repro_torch.crosscheck_executed_volume(solver.schedule,
+                                                    solver.transfer_stats())
+        assert cc["match"], cc["mismatches"]
+    assert np.abs(factors[True] - factors[False]).max() < 1e-8
+
+
+@pytest.mark.cuda
+def test_cuda_multidevice_f32_kernels_on_one_card(cuda):
+    """chip_smoke.py's config A at n = 2048, tb = 256 on ``[cuda:0] * 4``:
+    the per-op kernels, launched as often as the schedule has their ops,
+    then the fused step; both within the f32 factor's reach of LAPACK and
+    bitwise equal run to run."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.core.schedule import OpKind
+    n, tb = 2048, 256
+    a = _spd(n).astype(np.float64)
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, ladder="gpu", eps_target=1e-6, use_pallas=True,
+        compute_dtype=torch.float32, ndev=4).specialize(a)
+    want = np.linalg.cholesky(a)
+    names = {"mxp_gemm_update": OpKind.GEMM, "syrk_update": OpKind.SYRK,
+             "trsm": OpKind.TRSM, "potrf": OpKind.POTRF}
+    for fuse in (False, True):
+        solver, tiles, launches = _md_factor(
+            dataclasses.replace(cfg, fuse_columns=fuse), n, a, [cuda] * 4)
+        sched = solver.schedule
+        if fuse:
+            assert launches["fused_column_step"] > 0
+        else:
+            assert launches == {**dict.fromkeys(launches, 0), **{
+                k: sched.count(op) for k, op in names.items()}}
+        got = np.tril(tiles.permute(0, 2, 1, 3).reshape(n, n).double()
+                      .numpy())
+        assert np.abs(got - want).max() < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_single_device_factor_on_the_last_card(cuda):
+    """One device that is not the current one: the single-device executor
+    issues its ops under that card, so its kernels launch there (they
+    refuse operands of another card than the current one).  Unfused and
+    fused, per-op and fused launches counted, against LAPACK."""
+    import repro_torch
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA devices")
+    card = torch.device("cuda", count - 1)
+    n, tb = 1024, 256
+    a = _spd(n).astype(np.float64)
+    want = np.linalg.cholesky(a)
+    for fuse in (False, True):
+        cfg = repro_torch.CholeskyConfig(
+            tb=tb, ladder="gpu", eps_target=1e-6, use_pallas=True,
+            compute_dtype=torch.float32, fuse_columns=fuse).specialize(a)
+        solver = repro_torch.plan(n, cfg).compile(device=card)
+        ops.reset_counts()
+        got = solver.factor(a)
+        launches = ops.launch_counts()
+        assert torch.cuda.current_device() != card.index
+        if fuse:
+            assert launches["fused_column_step"] > 0
+        else:
+            assert launches["potrf"] == n // tb
+        assert np.abs(got - want).max() < 1e-4

@@ -191,9 +191,10 @@ def test_compile_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(ndev=2), dict(host_slots=4),
-    # the fused step itself is ported; across devices it is not
-    pytest.param(dict(fuse_columns=True, ndev=2), id="fuse_columns"),
+    # the multi-device executor is ported; its disk tier is not
+    dict(ndev=2, host_slots=4), dict(host_slots=4),
+    pytest.param(dict(fuse_columns=True, ndev=2, host_slots=4),
+                 id="fuse_columns"),
     dict(tb=0), dict(policy="auto"),
     # the NumPy replays and the hw presets are ported; the spill replay and
     # the tuner that the presets drive are not

@@ -411,7 +411,7 @@ def test_config_fused_end_to_end():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(ndev=2), "queue 1, item 6"),
+    (dict(ndev=2, host_slots=4), "queue 1, item 7"),
     (dict(host_slots=4), "queue 1, item 7"),
 ], ids=["ndev", "host_slots"])
 def test_fuse_columns_with_unported_options_raises(kw, item):

@@ -235,8 +235,13 @@ def test_hw_errors_match_reference(kw):
     dict(ndev=2), dict(ndev=4, grid=(2, 2)), dict(ndev=2, lookahead=1),
 ], ids=["ndev", "grid", "lookahead"])
 def test_multidevice_on_torch_raises_item_6(kw, backend):
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        repro_torch.CholeskyConfig(tb=TB, backend=backend, **kw)
+    """Item 6, the multi-device executor, is ported: these layouts plan on
+    the torch backend; with the disk tier they still raise its item, 7."""
+    assert repro_torch.CholeskyConfig(
+        tb=TB, backend=backend, **kw).resolved_backend() == "torch"
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        repro_torch.CholeskyConfig(tb=TB, backend=backend, host_slots=4,
+                                   **kw)
 
 
 @pytest.mark.parametrize("kw", [
