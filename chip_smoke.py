@@ -76,7 +76,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    wires sent as f32, must fail the replay check.  Every factor runs
    twice, bitwise equal, under
    a watchdog that ends the process if one hangs;
-8. LM serving, qwen3-14b at published widths and depth (bf16 activations,
+8. measured trace: config A, the main path's configuration, factored once
+   with an active ``TraceRecorder``: one span per op, none dropped, bitwise
+   the untraced unfused factor of the same solver and within the f32
+   factor's bound of the fused one; the fence floor (a synchronize of an
+   idle stream, and the ALLOC/FREE spans) beside the per-kind sums; the
+   drift report against ``simulate(HW["h100-pcie"])`` (a model reading);
+   the chrome trace's events against the spans; a timeline with one op
+   dropped, which the drift report must refuse.  Config B (phase 7's
+   layout) traced once: one span per op of every stream, the same
+   ``transfer_stats()``, within 1e-8 of the untraced factor (bitwise
+   logged);
+9. disk tier (``--spill-n``, 16384): the main path's configuration through
+   a ``DiskTileStore`` in a temporary directory (f64) and
+   ``SpillTorchExecutor``'s pinned host tier, whose size is chosen so that
+   the schedule fetches at least twice the store; unfused and fused, each
+   twice, bitwise run to run and bitwise its own fused groups run against
+   an in-core store; unfused bitwise the in-core executor's factor, fused
+   within the f32 factor's bound of it (its groups end at each FETCH/SPILL,
+   as the reference's, where the in-core path launches one a column);
+   executed FETCH/SPILL against the schedule, disk-tier and in-core
+   seconds side by side; a run with one scheduled SPILL skipped must
+   differ;
+10. LM serving, qwen3-14b at published widths and depth (bf16 activations,
    f32 parameters from ``--seed``, the flash flag on): the flash kernels
    against their plain version at the prefill shape and nine others, each
    output row at its own scale (a zeroed output and a dropped KV tile must
@@ -91,14 +113,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt; both logit checks must reject two faults (the flash kernel
    without its causal mask, the attention output dropped); decode tokens/s
    is the median of six windows;
-9. the kernels line (JSON; each kernel also with its launches in config
-   A) and the last line,
+11. the kernels line (JSON; each kernel also with its launches in config
+   A and in the disk tier) and the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
-``chiprun_out/chip_smoke.json`` as well.  ``--n``, ``--mxp-n``, ``--geo-n``
-and ``--tb`` cut the Cholesky sizes for a quick run; the model runs at
-full width and depth.
+``chiprun_out/chip_smoke.json`` as well.  ``--n``, ``--mxp-n``, ``--geo-n``,
+``--spill-n`` and ``--tb`` cut the Cholesky sizes for a quick run; the
+model runs at full width and depth.
 """
 from __future__ import annotations
 
@@ -1690,6 +1712,353 @@ def multidevice(n: int, mxp_n: int, tb: int, dev, seed: int, card: str,
     return out
 
 
+def _lower_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Two [nt, nt, tb, tb] CPU stores bitwise equal on their lower tiles
+    (the factor; the strictly upper tiles keep the input, which the f32
+    in-core store holds in f32 and an f64 disk store in f64)."""
+    nt = x.shape[0]
+    return all(torch.equal(x[i, :i + 1].to(y.dtype), y[i, :i + 1])
+               for i in range(nt))
+
+
+def fence_floor_us(dev, reps: int = 2000) -> float:
+    """Median host time of ``synchronize()`` on an idle CUDA stream, the
+    width of a fenced op that does no work."""
+    s = torch.cuda.current_stream(dev)
+    s.synchronize()
+    widths = []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        s.synchronize()
+        widths.append(time.perf_counter_ns() - t0)
+    return statistics.median(widths) / 1e3
+
+
+def trace_phase(n: int, mxp_n: int, tb: int, dev, seed: int,
+                card: str) -> dict:
+    """The measured trace on the card.  Config A, the main path's
+    configuration: one traced factor, one span per op, bitwise the
+    untraced unfused factor of the same solver; per-kind sums beside the
+    fence floor, the drift report against the simulator (a model
+    reading), the chrome trace's events against the spans, and a
+    misaligned timeline the report must refuse.  Config B, phase 7's
+    mixed-precision layout on four logical devices: one span per op of
+    every stream, the same transfer counters, the untraced factor."""
+    import dataclasses
+    import tempfile
+
+    import repro_torch
+    from repro_torch import obs
+    out = {"card": card}
+    floor_us = fence_floor_us(dev)
+    log(f"trace [{card}]: a fenced no-op (synchronize of an idle stream) "
+        f"takes {floor_us:.2f} us, median of 2000")
+    out["fence_noop_us"] = floor_us
+
+    a = make_spd(n, dev, seed)
+    eps_target = 1e-6
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, policy="v3", ladder="gpu", eps_target=eps_target,
+        use_pallas=True, compute_dtype=torch.float32).specialize(a)
+    plan = repro_torch.plan(n, cfg)
+    solver = plan.compile(device=dev)
+    sched = plan.single_schedule()
+    t0 = time.perf_counter()
+    solver.factor(a, materialize=False)
+    untraced_s = time.perf_counter() - t0
+    untraced = solver.tiles.clone()
+    rec = obs.TraceRecorder()
+    repro_torch.reset_counts()
+    t0 = time.perf_counter()
+    solver.factor(a, materialize=False, trace=rec)
+    traced_s = time.perf_counter() - t0
+    launches = repro_torch.launch_counts()
+    same = torch.equal(untraced, solver.tiles)
+    log(f"trace A: n={n} tb={tb}: {len(rec)} spans for {len(sched.ops)} "
+        f"ops, {rec.dropped} dropped; traced factor {traced_s:.3f}s, "
+        f"untraced {untraced_s:.3f}s; traced bitwise the untraced unfused "
+        f"factor: {same}; launches {launches}")
+    require(len(rec) == len(sched.ops) and rec.dropped == 0,
+            f"trace A: {len(rec)} spans for {len(sched.ops)} ops")
+    require([s.kind for s in rec.spans]
+            == [op.kind.value for op in sched.ops],
+            "trace A: span kinds do not follow the schedule")
+    require(same, "trace A: traced factor differs from the untraced one")
+    # phase 4's fused factor, again on this matrix: fused and unfused f32
+    # factors sum in other orders, so they agree to the f32 factor's own
+    # accuracy bound (phase 4's), not bitwise
+    fused = repro_torch.plan(n, dataclasses.replace(
+        cfg, fuse_columns=True)).compile(device=dev)
+    fused.factor(a, materialize=False)
+    amax = float(a.abs().max())
+    d_fused = max(float((solver.tiles[i, :i + 1].to(torch.float64)
+                         - fused.tiles[i, :i + 1].to(torch.float64))
+                        .abs().max()) for i in range(n // tb)) / amax
+    bound = 64 * max(eps_target, 2.0 ** -24 * math.sqrt(n))
+    log(f"trace A: max|L_traced - L_fused|/max|A| = {d_fused:.3e} (the f32 "
+        f"factor's bound {bound:.1e})")
+    require(d_fused < bound, f"trace A vs fused {d_fused}")
+    del fused
+
+    by_kind = rec.by_kind()
+    books = [s.duration_s * 1e6 for s in rec.spans
+             if s.kind in ("alloc", "free")]
+    book_us = statistics.median(books) if books else None
+    log(f"trace A [{card}]: ALLOC/FREE spans (no work: the fence floor in "
+        f"the loop): " + (f"median {book_us:.2f} us over {len(books)}"
+                          if books else "none in this schedule"))
+    for kind, (count, secs, nbytes) in sorted(by_kind.items()):
+        log(f"trace A [{card}]: {kind:>6s} n={count:<6d} sum {secs:.4f}s, "
+            f"{secs / count * 1e6:.2f} us a span, beside the fenced no-op "
+            f"{floor_us:.2f} us ({count * floor_us / 1e6:.4f}s in all); "
+            f"{nbytes} B")
+    sim = solver.simulate(repro_torch.HW["h100-pcie"], record_timeline=True)
+    rep = obs.drift_report(rec, sim)
+    log("trace A: model reading, not a measurement: drift against "
+        "simulate(HW['h100-pcie']), a PCIe datasheet preset (this card is "
+        "SXM)\n" + rep.summary())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace_a.json"
+        ct = obs.chrome_trace_measured(rec, path)
+        disk = json.loads(path.read_text())
+    xs = [e for e in disk["traceEvents"] if e["ph"] == "X"]
+    t_first = min(s.t_start for s in rec.spans)
+    want = [((s.t_start - t_first) / 1e3, (s.t_end - s.t_start) / 1e3)
+            for s in rec.spans]
+    got = [(e["ts"], e["dur"]) for e in xs]
+    same_events = (disk == ct and len(xs) == len(rec.spans)
+                   and all(abs(g[0] - w[0]) < 1e-3 and abs(g[1] - w[1]) < 1e-3
+                           for g, w in zip(got, want)))
+    log(f"trace A: chrome trace {len(xs)} events, their starts the spans': "
+        f"{same_events}")
+    require(same_events, "trace A: chrome trace events differ from the spans")
+    # the control: the same timeline with one op dropped must be refused
+    k = len(sim.timeline) // 2
+    short = dataclasses.replace(
+        sim, timeline=sim.timeline[:k] + sim.timeline[k + 1:])
+    try:
+        obs.drift_report(rec, short)
+    except ValueError as exc:
+        log(f"trace A: control, a timeline with one op dropped: refused "
+            f"({exc})")
+    else:
+        require(False, "trace A: drift_report aligned a short timeline")
+    out["A"] = {
+        "n": n, "tb": tb, "spans": len(rec), "ops": len(sched.ops),
+        "traced_s": traced_s, "untraced_s": untraced_s,
+        "bitwise_untraced": same, "vs_fused_rel": d_fused,
+        "launches": launches, "bookkeeping_span_us": book_us,
+        "by_kind": {k: {"count": c, "seconds": t, "bytes": b}
+                    for k, (c, t, b) in by_kind.items()},
+        "drift_h100_pcie_model": {
+            "makespan_ratio": rep.makespan_ratio,
+            "per_kind_ratio": {k: v["ratio"]
+                               for k, v in rep.per_kind.items()}}}
+    del solver, a, untraced
+
+    # config B: phase 7's mixed-precision layout, traced once
+    rho = 0.99
+    idx = torch.arange(mxp_n, device=dev, dtype=torch.float64)
+    a = rho ** (idx[:, None] - idx[None, :]).abs()
+    del idx
+    devices, shared = md_devices(dev, MD_NDEV)
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, policy="v3", ladder="gpu-scaled", eps_target=eps_target,
+        use_pallas=True, ndev=MD_NDEV, grid=(2, 2),
+        lookahead=1).specialize(a)
+    solver = repro_torch.plan(mxp_n, cfg).compile(device=devices)
+    solver.factor(a, materialize=False)
+    untraced = solver.tiles.clone()
+    wires = solver.transfer_stats()
+    rec = obs.TraceRecorder()
+    t0 = time.perf_counter()
+    solver.factor(a, materialize=False, trace=rec)
+    traced_s = time.perf_counter() - t0
+    order = [(d, op) for d, op in solver.schedule.iter_dispatch_order()]
+    bitwise = torch.equal(untraced, solver.tiles)
+    diff = float((untraced - solver.tiles).abs().max())
+    same_wires = solver.transfer_stats() == wires
+    per_dev = {d: sum(1 for s in rec.spans if s.device == d)
+               for d in range(MD_NDEV)}
+    log(f"trace B: n={mxp_n} grid (2, 2) lookahead 1 on {MD_NDEV} logical "
+        f"devices ({'one card' if shared else 'four cards'}): {len(rec)} "
+        f"spans for {len(order)} ops, by device {per_dev} against "
+        f"{[len(st) for st in solver.schedule.streams]}; traced "
+        f"{traced_s:.3f}s; transfer_stats equal: {same_wires}; max|traced "
+        f"- untraced| = {diff:.3e}, bitwise: {bitwise}")
+    require(len(rec) == len(order) and rec.dropped == 0
+            and [(s.device, s.kind) for s in rec.spans]
+            == [(d, op.kind.value) for d, op in order]
+            and all(per_dev[d] == len(st)
+                    for d, st in enumerate(solver.schedule.streams)),
+            "trace B: not one span per op of every stream")
+    require(same_wires, "trace B: transfer_stats differ from the untraced")
+    require(diff < MD_MXP_TOL, f"trace B: traced vs untraced {diff}")
+    out["B"] = {"n": mxp_n, "spans": len(rec), "ops": len(order),
+                "traced_s": traced_s, "bitwise_untraced": bitwise,
+                "max_diff": diff, "transfer_stats_equal": same_wires}
+    return out
+
+
+def pick_host_slots(n: int, tb: int, plan) -> int:
+    """The largest power-of-two host tier whose schedule fetches at least
+    twice the store from disk."""
+    from repro_torch.core.schedule import build_schedule
+    nt = n // tb
+    store_bytes = nt * nt * tb * tb * 8
+    h = 1 << (nt * nt).bit_length()
+    while h > 1:
+        h //= 2
+        sched = build_schedule(nt, tb, "v3", plan=plan, host_slots=h)
+        if sched.fetch_bytes() >= 2 * store_bytes:
+            return h
+    raise RuntimeError("no host tier fetches twice the store")
+
+
+def spill_groups_in_core(ex, a: torch.Tensor, dev) -> torch.Tensor:
+    """The spill executor's ops, segment by segment as it groups them,
+    run against a full in-core store of ``a`` (pinned, f32) instead of the
+    disk tier: the same kernels on the same operands in the same order,
+    with no FETCH/SPILL.  Returns the factored store."""
+    from repro_torch.core.cholesky import (_interpret_op, _new_io,
+                                           _run_ops_fused)
+    n, tb = a.shape[0], ex.sched.tb
+    nt = n // tb
+    host = torch.empty((nt, nt, tb, tb), dtype=ex.dtype, pin_memory=True)
+    for i in range(nt):
+        host[i].copy_(a[i * tb:(i + 1) * tb].to(ex.dtype)
+                      .reshape(tb, nt, tb).permute(1, 0, 2))
+    slots = torch.zeros((ex._nslots, tb, tb), dtype=ex.dtype, device=dev)
+    io = _new_io()
+    with torch.cuda.device(dev):
+        for seg in ex._segments:
+            if seg[0] != "run":
+                continue
+            if ex._fuse:
+                _run_ops_fused(seg[1], host, slots, ex.sched.plan.ladder,
+                               ex._kf, io)
+            else:
+                for op in seg[1]:
+                    _interpret_op(host, slots, op, ex.sched.plan.ladder,
+                                  ex._kf, io)
+    torch.cuda.synchronize(dev)
+    return host
+
+
+def disk_tier(n: int, tb: int, dev, seed: int, card: str) -> dict:
+    """The disk tier on the card: the main path's configuration at ``n``
+    through a DiskTileStore (f64, in a temporary directory) and a host tier
+    of pinned slabs, unfused and fused, each twice; executed FETCH/SPILL
+    against the schedule; a run with one scheduled SPILL skipped must
+    differ.  Unfused, the factor is bitwise the in-core executor's.  Fused,
+    the groups end at every FETCH/SPILL, as the reference's do (528 fused
+    launches and per-op ones against the in-core path's one a column), so
+    the factor is bitwise the same groups run against an in-core store
+    (:func:`spill_groups_in_core`) and within the f32 factor's bound of
+    the in-core fused factor, whose sums run in another order."""
+    import dataclasses
+    import tempfile
+
+    import repro_torch
+    from repro_torch.core.cholesky import SpillTorchExecutor
+    from repro_torch.core.schedule import OpKind
+    a = make_spd(n, dev, seed)
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, policy="v3", ladder="gpu", eps_target=1e-6, use_pallas=True,
+        compute_dtype=torch.float32).specialize(a)
+    host_slots = pick_host_slots(n, tb, cfg.plan)
+    nt = n // tb
+    store_bytes = nt * nt * tb * tb * 8
+    sched = repro_torch.plan(n, dataclasses.replace(
+        cfg, host_slots=host_slots)).single_schedule()
+    want_io = {"fetch_ops": sched.count(OpKind.FETCH),
+               "spill_ops": sched.count(OpKind.SPILL),
+               "fetched_bytes": sched.fetch_bytes(),
+               "spilled_bytes": sched.spill_bytes()}
+    log(f"disk [{card}]: n={n} tb={tb} host_slots={host_slots} (the largest "
+        f"power of two whose schedule fetches twice the store): store "
+        f"{store_bytes / 1e9:.2f} GB f64, schedule {want_io}, fetch / store "
+        f"{sched.fetch_bytes() / store_bytes:.2f}; slab events before each "
+        f"FETCH/SPILL")
+    host_a = a.cpu().numpy()
+    amax = float(a.abs().max())
+    bound = 64 * max(1e-6, 2.0 ** -24 * math.sqrt(n))
+    out = {"n": n, "tb": tb, "host_slots": host_slots,
+           "store_bytes": store_bytes, "schedule_io": want_io, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "store.npy")
+
+        def spill_run(ex):
+            store = repro_torch.DiskTileStore.from_matrix(path, host_a, tb)
+            repro_torch.reset_counts()
+            t0 = time.perf_counter()
+            io = ex.run_store(store)
+            secs = time.perf_counter() - t0
+            launches = repro_torch.launch_counts()
+            got = torch.from_numpy(store.to_tiles())
+            del store
+            return got, secs, io, launches
+
+        for fuse in (False, True):
+            tag = "disk " + ("fused" if fuse else "unfused")
+            incore = repro_torch.plan(n, dataclasses.replace(
+                cfg, fuse_columns=fuse)).compile(device=dev)
+            incore_s = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                incore.factor(a, materialize=False)
+                incore_s.append(time.perf_counter() - t0)
+            ex = SpillTorchExecutor(sched, torch.float32, use_pallas=True,
+                                    device=dev, fuse_columns=fuse)
+            first, s1, io, launches = spill_run(ex)
+            second, s2, _io, _l = spill_run(ex)
+            same_groups = spill_groups_in_core(ex, a, dev)
+            ok_groups = _lower_equal(same_groups, first)
+            ok_incore = _lower_equal(incore.tiles, first)
+            d_incore = max(float((incore.tiles[i, :i + 1].double()
+                                  - first[i, :i + 1]).abs().max())
+                           for i in range(nt)) / amax
+            ok_twice = torch.equal(first, second)
+            log(f"{tag} [{card}]: disk tier {s1:.3f}s, {s2:.3f}s; in-core "
+                f"{incore_s[0]:.3f}s, {incore_s[1]:.3f}s; bitwise the "
+                f"in-core executor's factor: {ok_incore} (max|diff|/max|A| "
+                f"{d_incore:.3e}, bound {bound:.1e}); bitwise its own groups "
+                f"run in core: {ok_groups}; second run bitwise the first: "
+                f"{ok_twice}; executed {ex.last_io_stats}; H2D "
+                f"{io['h2d_ops']} D2H {io['d2h_ops']}; launches {launches}")
+            require(ok_groups, f"{tag}: differs from its groups in core")
+            require(ok_incore or fuse,
+                    f"{tag}: differs from the in-core factor")
+            require(d_incore < bound, f"{tag}: vs in-core {d_incore}")
+            require(ok_twice, f"{tag}: two runs differ")
+            del same_groups
+            require(ex.last_io_stats == want_io,
+                    f"{tag}: executed {ex.last_io_stats} != {want_io}")
+            require(io["h2d_ops"] == sched.count(OpKind.LOAD)
+                    and io["d2h_ops"] == sched.count(OpKind.STORE),
+                    f"{tag}: copies {io}")
+            out["fused" if fuse else "unfused"] = {
+                "disk_s": [s1, s2], "incore_s": incore_s,
+                "bitwise_incore": ok_incore, "vs_incore_rel": d_incore,
+                "executed": dict(ex.last_io_stats), "copies": io,
+                "launches": launches}
+            if not fuse:
+                # the control: one scheduled SPILL skipped
+                spills = [k for k, seg in enumerate(ex._segments)
+                          if seg[0] == "io"
+                          and seg[1].kind is OpKind.SPILL]
+                del ex._segments[spills[len(spills) // 2]]
+                bad, _s, _io, _l = spill_run(ex)
+                differs = not _lower_equal(incore.tiles, bad)
+                log(f"{tag}: control, one SPILL skipped: differs from the "
+                    f"in-core factor: {differs}")
+                require(differs, f"{tag}: a skipped SPILL went unseen")
+                del bad
+            del incore, ex, first, second
+    del a
+    return out
+
+
 # flash cases: (tag, B, S, T, H, KV, hd, dtype, causal); the first is
 # qwen3-14b's prefill shape, the one timed and reported
 FLASH_CASES = (
@@ -2088,6 +2457,7 @@ def main() -> int:
     ap.add_argument("--tb", type=int, default=512)
     ap.add_argument("--mxp-n", type=int, default=8192)
     ap.add_argument("--geo-n", type=int, default=16384)
+    ap.add_argument("--spill-n", type=int, default=16384)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2127,7 +2497,11 @@ def main() -> int:
     torch.cuda.empty_cache()                    # 7. multi-device
     md = multidevice(args.n, MD_MXP_N, args.tb, dev, args.seed, card,
                      {"main": main, "fused": fused})
-    torch.cuda.empty_cache()                    # 8. LM serving
+    torch.cuda.empty_cache()                    # 8. measured trace
+    traced = trace_phase(args.n, MD_MXP_N, args.tb, dev, args.seed, card)
+    torch.cuda.empty_cache()                    # 9. disk tier
+    disk = disk_tier(args.spill_n, args.tb, dev, args.seed, card)
+    torch.cuda.empty_cache()                    # 10. LM serving
     log(f"lm: device memory in use before the model "
         f"{torch.cuda.memory_allocated(dev) / 2 ** 20:.0f} MiB")
     checks.update(flash_checks(dev, g))
@@ -2154,7 +2528,9 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-            "multidevice_launches": md_run["launches"][name]})
+            "multidevice_launches": md_run["launches"][name],
+            "disk_tier_launches": disk["fused" if name == "fused_column_step"
+                                       else "unfused"]["launches"][name]})
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
                     "split", "device_ms", "library_device_ms", "geometry",
                     "grid", "geo_f64_launches", "geo_f64_mid_ms"):
@@ -2165,10 +2541,10 @@ def main() -> int:
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
          "fused": fused, "mxp": mxp, "geo": geo_res, "multidevice": md,
-         "lm": lm,
+         "trace": traced, "disk_tier": disk, "lm": lm,
          "kernels": kernels}, indent=1))
     log(card)
-    print(json.dumps({"kernels": kernels}))     # 9. kernels line
+    print(json.dumps({"kernels": kernels}))     # 11. kernels line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,7 +22,17 @@ also covers the LM scaffold's serving path for the dense family
 (``configs``, ``models``, ``launch``: prefill through the hand-written
 flash attention kernel, and the decode server), with
 ``convert.params_from_reference`` to carry the reference's weights across.  Every TPU kernel of the reference has its
-Hopper counterpart.  See ROADMAP.md for what follows.
+Hopper counterpart.
+
+The disk tier: ``CholeskyConfig(host_slots=H)`` bounds host residency to
+``H`` tile slabs over a :class:`DiskTileStore` (the schedule's FETCH/SPILL
+ops), on the card through :class:`SpillTorchExecutor`, whose slabs are
+pinned host memory; :class:`RestartableFactorization` resumes a killed
+disk-tier replay bit-identically from :mod:`repro_torch.checkpoint`.
+Observability: ``factor(a, trace=TraceRecorder())`` records one fenced
+span per op on every executor, and :mod:`repro_torch.obs` exports it and
+aligns it against the simulator (``drift_report``).  See ROADMAP.md for
+what follows.
 """
 from repro_torch.convert import config_from_reference, params_from_reference
 from repro_torch.core.analytics import (HW, HardwareModel, ascii_trace,
@@ -33,8 +43,15 @@ from repro_torch.core.analytics import (HW, HardwareModel, ascii_trace,
 from repro_torch.core.api import (CholeskyConfig, CholeskyPlan, OOCSolver,
                                   clear_plan_cache, plan, plan_cache_stats)
 from repro_torch.core.cholesky import (MultiDeviceTorchExecutor,
+                                       SpillTorchExecutor,
                                        make_multidevice_torch_executor,
-                                       make_torch_executor, plan_for_matrix)
+                                       make_torch_executor, plan_for_matrix,
+                                       run_multidevice_spill,
+                                       run_schedule_spill, run_traced_torch)
+from repro_torch.core.spill import (ArrayTileStore, DiskTileStore,
+                                    SpilledHostStore, host_residency_at)
+from repro_torch.checkpoint import (CheckpointManager,
+                                    RestartableFactorization, TileJournal)
 from repro_torch.core.precision import (LADDERS, PrecisionPlan,
                                         assign_precision, uniform_plan)
 from repro_torch.core.schedule import (MultiDeviceSchedule, Op, OpKind,
@@ -43,6 +60,8 @@ from repro_torch.core.schedule import (MultiDeviceSchedule, Op, OpKind,
 from repro_torch.core.taskgraph import build_task_dag, verify_dispatch
 from repro_torch.core.tiling import TileLayout, from_tiles, random_spd, to_tiles
 from repro_torch.kernels.ops import call_counts, launch_counts, reset_counts
+from repro_torch import obs
+from repro_torch.obs import NullRecorder, TraceRecorder, drift_report
 
 __version__ = "0.1.0"
 
@@ -51,7 +70,12 @@ __all__ = [
     "CholeskyConfig", "CholeskyPlan", "OOCSolver", "plan", "clear_plan_cache",
     "plan_cache_stats", "config_from_reference", "params_from_reference",
     "make_torch_executor", "plan_for_matrix", "MultiDeviceTorchExecutor",
-    "make_multidevice_torch_executor",
+    "make_multidevice_torch_executor", "SpillTorchExecutor",
+    "run_schedule_spill", "run_multidevice_spill", "run_traced_torch",
+    "DiskTileStore", "ArrayTileStore", "SpilledHostStore",
+    "host_residency_at", "CheckpointManager", "RestartableFactorization",
+    "TileJournal",
+    "obs", "TraceRecorder", "NullRecorder", "drift_report",
     "LADDERS", "PrecisionPlan", "assign_precision", "uniform_plan",
     "MultiDeviceSchedule", "Op", "OpKind", "Schedule",
     "build_multidevice_schedule", "build_schedule",

@@ -24,8 +24,21 @@ logical device getting a stream of its own), or ``ndev`` CPU handles.
 device or for the multi-device schedules of ``ndev``/``grid``/``lookahead``.
 It runs only when asked for: ``"auto"`` resolves to ``"torch"``, also when
 fewer than ``ndev`` cards are visible (that raises at ``compile()``).
-Options whose slice is not ported yet (the disk tier, the autotuner) raise
-``NotImplementedError`` naming the ROADMAP item.
+
+Disk tier: ``host_slots=H > 0`` bounds host residency to ``H`` tile slabs
+over a disk-backed store (the schedule's FETCH/SPILL ops).  One device runs
+it on either backend, the torch backend through
+:class:`~repro_torch.core.cholesky.SpillTorchExecutor`; ``ndev > 1`` runs it
+on ``backend="numpy"`` only, and unlike the reference ``"auto"`` does not
+resolve to that replay quietly: it raises, naming ``backend="numpy"``.
+
+Tracing: ``factor(a, trace=rec)`` with an active
+:class:`repro_torch.obs.TraceRecorder` (or one pinned at
+``compile(trace=rec)``) runs the executor's measured path, one fenced span
+per schedule op (:mod:`repro_torch.obs`).
+
+The option whose slice is not ported yet, the autotuner, raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,6 +61,13 @@ _MULTIDEV_POLICIES = ("sync", "v1", "v2", "v3")
 _BACKENDS = ("auto", "torch", "numpy")
 _COMPUTE_DTYPES = (torch.float64, torch.float32)
 _DEFAULT_BLOCK = (4, 4)
+
+
+def _obs_registry():
+    """The process-wide obs metrics registry, imported lazily so that the
+    planner stays importable without the obs package."""
+    from ..obs.metrics import REGISTRY
+    return REGISTRY
 
 
 def _not_ported(what: str, item: str):
@@ -138,7 +158,20 @@ class CholeskyConfig:
                 f"multi-device schedules support sync/v1/v2/v3, "
                 f"got {self.policy!r}")
         if self.host_slots < 0:
-            raise ValueError(f"host_slots must be >= 0, got {self.host_slots}")
+            raise ValueError(f"host_slots must be >= 0 (0 = host-resident "
+                             f"store, no spill tier), got {self.host_slots}")
+        if self.host_slots > 0:
+            if (self.lookahead or 0) > 0:
+                raise ValueError(
+                    "host_slots > 0 (disk spill tier) is incompatible with "
+                    "lookahead > 0: the spill post-pass inserts ops into "
+                    "each stream, which would invalidate the pipelined "
+                    "emitter's dispatch-chunk indices")
+            if self.ndev > 1 and self.backend != "numpy":
+                raise ValueError(
+                    "host_slots > 0 with ndev > 1 runs on the NumPy replay "
+                    "(the multi-device executor keeps full row slabs); "
+                    "pass backend='numpy'")
         if self.compute_dtype is not None \
                 and self.compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES} "
@@ -148,9 +181,6 @@ class CholeskyConfig:
         if self.tb == 0 or self.policy == "auto":
             raise _not_ported("the autotuner (tb=0, policy='auto')",
                               "queue 1, item 9")
-        if self.host_slots > 0:
-            raise _not_ported("the disk tier (host_slots > 0)",
-                              "queue 1, item 7")
         if self.cache_slots > 0:
             floor = min_cache_slots(self.policy, self.block,
                                     self.lookahead or 0)
@@ -293,13 +323,16 @@ class OOCSolver:
     ``compile()`` returns a fresh solver: the executor is shared through
     the plan, the factored store is not."""
 
-    def __init__(self, plan: "CholeskyPlan", executor: "_CompiledExecutor"):
+    def __init__(self, plan: "CholeskyPlan", executor: "_CompiledExecutor",
+                 default_trace=None):
         self._plan = plan
         self._executor = executor
+        self._default_trace = default_trace   # from compile(trace=...)
         self._tiles = None          # host tile store (compute dtype)
         self._factored = False      # the store holds a finished factor
         self._last_io = None        # executed transfers of the last factor
         self._last_wires = None     # executed BCAST/RECV of the last factor
+        self._last_disk = None      # executed FETCH/SPILL of the last factor
         self._factor_calls = 0
         self._solve_calls = 0
 
@@ -334,7 +367,11 @@ class OOCSolver:
         ``factor()``, the executed copies, which carry compute-dtype
         bytes, and with ``ndev > 1`` the executed BCAST/RECV counters
         (:meth:`transfer_stats`), the H2D of wires cut from a slab
-        (``wire_h2d``) and the D2H of host-landing RECVs (``recv_d2h``)."""
+        (``wire_h2d``) and the D2H of host-landing RECVs (``recv_d2h``).
+        A spill plan adds the schedule's FETCH/SPILL volumes
+        (``scheduled_fetch_bytes``/``scheduled_spill_bytes``) and, after a
+        ``factor()``, the executed FETCH/SPILL counters under the
+        reference's keys (``fetch_ops``, ``fetched_bytes``, ...)."""
         sched = self._plan.schedule
         transfers = {
             "loads": sched.count(OpKind.LOAD),
@@ -348,6 +385,11 @@ class OOCSolver:
             if done is not None:
                 transfers.update({"executed_" + k: v
                                   for k, v in done.items()})
+        if sched.host_slots:
+            transfers["scheduled_fetch_bytes"] = sched.fetch_bytes()
+            transfers["scheduled_spill_bytes"] = sched.spill_bytes()
+            if self._last_disk is not None:
+                transfers.update(self._last_disk)
         return {"executor_builds": self._plan.executor_builds,
                 "factor_calls": self._factor_calls,
                 "solve_calls": self._solve_calls,
@@ -368,20 +410,71 @@ class OOCSolver:
                 pin_memory=self.device.type == "cuda")
         return self._tiles
 
-    def factor(self, a, materialize: bool = True) -> np.ndarray | None:
+    def factor(self, a, materialize: bool = True,
+               trace=None) -> np.ndarray | None:
         """Factor SPD ``a`` (numpy, or a tensor on any device) through the
         cached schedule; returns tril L as a numpy f64 array, or None with
         ``materialize=False`` (the factor then stays in the tile store for
         ``solve``/``solve_lower``/``logdet``).  Each call overwrites this
-        solver's previous factor."""
+        solver's previous factor.
+
+        ``trace``: an *active* :class:`repro_torch.obs.TraceRecorder`
+        switches every backend to its measured path, op by op with a fence
+        per op, recording exactly one span per schedule op (analyze with
+        :func:`repro_torch.obs.drift_report`).  ``None`` (or the inactive
+        :data:`repro_torch.obs.NULL`) runs the ordinary path unchanged.  A
+        default recorder can be pinned at :meth:`CholeskyPlan.compile`.
+        A traced factor on the torch backend is unfused, as the
+        reference's, and bitwise the untraced unfused one."""
+        if trace is None:
+            trace = self._default_trace
+        active = trace is not None and getattr(trace, "active", False)
+        if active:
+            cfg = self.config
+            trace.meta.update({
+                "n": self.n, "tb": cfg.tb, "nt": self.schedule.nt,
+                "ndev": cfg.ndev, "policy": self.schedule.policy,
+                "lookahead": cfg.lookahead or 0,
+                "host_slots": cfg.host_slots,
+                "grid": list(self.schedule.grid),
+                "backend": cfg.resolved_backend(),
+            })
+        else:
+            trace = None
         if self._executor.replay is not None:
-            return self._factor_numpy(a, materialize)
-        if not isinstance(a, torch.Tensor):
-            a = torch.from_numpy(np.asarray(a, dtype=np.float64))
+            self._factor_numpy(a, trace)
+        elif self._executor.spill is not None:
+            self._factor_spill(a, trace)
+        else:
+            self._factor_torch(a, trace)
+        self._factored = True
+        self._factor_calls += 1
+        reg = _obs_registry()
+        sched = self._plan.schedule
+        reg.inc("repro.factor.calls")
+        reg.inc("repro.factor.h2d_bytes", sched.loads_bytes())
+        reg.inc("repro.factor.d2h_bytes", sched.stores_bytes())
+        if sched.host_slots:
+            reg.inc("repro.factor.fetch_bytes", sched.fetch_bytes())
+            reg.inc("repro.factor.spill_bytes", sched.spill_bytes())
+        reg.set_gauge("repro.factor.executor_builds",
+                      self._plan.executor_builds)
+        if not materialize:
+            return None
+        return np.tril(from_tiles(self._tiles.to(torch.float64).numpy()))
+
+    def _check_shape(self, a) -> None:
         if tuple(a.shape) != (self.n, self.n):
             raise ValueError(
                 f"matrix shape {tuple(a.shape)} does not match the plan's "
                 f"n={self.n}; build a new plan for a different size")
+
+    def _factor_torch(self, a, trace) -> None:
+        """The in-core torch executors: the host store filled from ``a``
+        one tile row at a time, factored in place."""
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.asarray(a, dtype=np.float64))
+        self._check_shape(a)
         tb = self.config.tb
         nt = self.n // tb
         host = self._store()
@@ -390,36 +483,66 @@ class OOCSolver:
             rows = a[i * tb:(i + 1) * tb].to(host.dtype)
             host[i].copy_(rows.reshape(tb, nt, tb)
                           .permute(1, 0, 2))
-        self._last_io = self._executor.run(host)
-        if self._executor.multidevice is not None:
-            self._last_wires = dict(
-                self._executor.multidevice.last_transfer_stats)
-        elif self.device.type == "cuda":
+        ex = self._executor
+        if ex.multidevice is not None:
+            self._last_io = ex.multidevice(host, trace=trace)
+            self._last_wires = dict(ex.multidevice.last_transfer_stats)
+            return
+        if trace is not None:
+            from .cholesky import run_traced_torch
+            self._last_io = run_traced_torch(
+                self._plan.single_schedule(), host, trace, ex.dtype,
+                use_pallas=self.config.use_pallas, device=self.device)
+            return
+        self._last_io = ex.run(host)
+        if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self._factored = True
-        self._factor_calls += 1
-        if not materialize:
-            return None
-        return np.tril(from_tiles(host.to(torch.float64).numpy()))
 
-    def _factor_numpy(self, a, materialize: bool) -> np.ndarray | None:
-        """The NumPy replay of ``backend='numpy'``: the factor lands in an
-        f64 CPU tile store."""
+    def _host_tiles(self, a) -> np.ndarray:
+        """``a`` as an f64 numpy tile array (the replays' and the disk
+        tier's input)."""
         if isinstance(a, torch.Tensor):
             a = a.detach().cpu().numpy()
         a = np.asarray(a, dtype=np.float64)
-        if a.shape != (self.n, self.n):
-            raise ValueError(
-                f"matrix shape {a.shape} does not match the plan's "
-                f"n={self.n}; build a new plan for a different size")
+        self._check_shape(a)
+        return to_tiles(a, self.config.tb)
+
+    def _factor_spill(self, a, trace) -> None:
+        """The torch backend's disk tier: :class:`SpillTorchExecutor` over
+        an in-memory store with the disk store's interface; the factor
+        lands in an f64 CPU tile store."""
+        from .spill import ArrayTileStore
+        store = ArrayTileStore(self._host_tiles(a))
         self._factored = False
-        out = self._executor.replay(to_tiles(a, self.config.tb))
+        spill = self._executor.spill
+        self._last_io = spill.run_store(store, trace=trace)
+        self._last_disk = dict(spill.last_io_stats)
+        self._tiles = torch.from_numpy(store.to_tiles())
+
+    def _factor_numpy(self, a, trace) -> None:
+        """The NumPy replays of ``backend='numpy'``: the factor lands in an
+        f64 CPU tile store.  A spill plan replays through a bounded host
+        tier over an in-memory store with the disk store's interface."""
+        from .cholesky import (run_multidevice_spill, run_schedule_spill)
+        from .spill import ArrayTileStore
+        tiles = self._host_tiles(a)
+        self._factored = False
+        if self._plan.schedule.host_slots > 0:
+            store = ArrayTileStore(tiles)
+            if self.config.ndev > 1:
+                hosts = run_multidevice_spill(store, self._plan.schedule,
+                                              trace=trace)
+            else:
+                hosts = [run_schedule_spill(
+                    store, self._plan.single_schedule(), trace=trace)]
+            self._last_disk = {
+                k: sum(getattr(h, k) for h in hosts)
+                for k in ("fetch_ops", "spill_ops", "fetched_bytes",
+                          "spilled_bytes")}
+            out = store.to_tiles()
+        else:
+            out = self._executor.replay(tiles, trace)
         self._tiles = torch.from_numpy(out)
-        self._factored = True
-        self._factor_calls += 1
-        if not materialize:
-            return None
-        return np.tril(from_tiles(out))
 
     def _factored_tiles(self) -> torch.Tensor:
         if not self._factored:
@@ -454,6 +577,7 @@ class OOCSolver:
         x = cho_solve_tiles(self._factored_tiles(), self._check_rhs(b),
                             self.device)
         self._solve_calls += 1
+        _obs_registry().inc("repro.solve.calls")
         return x.cpu().numpy()
 
     def solve_lower(self, b) -> np.ndarray:
@@ -462,6 +586,7 @@ class OOCSolver:
         z = solve_lower_tiles(self._factored_tiles(), self._check_rhs(b),
                               self.device)
         self._solve_calls += 1
+        _obs_registry().inc("repro.solve.calls")
         return z.cpu().numpy()
 
     def logdet(self) -> float:
@@ -482,29 +607,39 @@ class _CompiledExecutor:
     """The per-plan executor for one device (or ``ndev`` logical devices)
     and compute dtype, shared by every solver of the plan.  Holds no
     factored data.  On the numpy backend it builds nothing: ``replay`` runs
-    the plan's NumPy replay."""
+    the plan's NumPy replay (the solver runs a spill plan's replay itself,
+    for its counters).  On the torch backend it holds one of ``run`` (the
+    single-device executor), ``multidevice`` or ``spill``
+    (:class:`~repro_torch.core.cholesky.SpillTorchExecutor`, one device
+    with ``host_slots > 0``)."""
 
     def __init__(self, plan: "CholeskyPlan", devices: tuple):
-        from .cholesky import (make_multidevice_torch_executor,
+        from .cholesky import (SpillTorchExecutor,
+                               make_multidevice_torch_executor,
                                make_torch_executor, run_multidevice_numpy,
                                run_schedule_numpy)
         cfg = plan.config
         self.devices = devices
         self.device = devices[0]
         self.dtype = cfg.resolved_compute_dtype
-        self.run = self.replay = self.multidevice = None
+        self.run = self.replay = self.multidevice = self.spill = None
         if cfg.resolved_backend() == "numpy":
             if cfg.ndev > 1:
-                self.replay = lambda tiles: run_multidevice_numpy(
-                    tiles, plan.schedule)
+                self.replay = lambda tiles, trace=None: run_multidevice_numpy(
+                    tiles, plan.schedule, trace=trace)
             else:
-                self.replay = lambda tiles: run_schedule_numpy(
-                    tiles, plan.single_schedule())
+                self.replay = lambda tiles, trace=None: run_schedule_numpy(
+                    tiles, plan.single_schedule(), trace=trace)
             return
         if cfg.ndev > 1:
             self.multidevice = self.run = make_multidevice_torch_executor(
                 plan.schedule, self.dtype, use_pallas=cfg.use_pallas,
                 devices=devices, fuse_columns=cfg.fuse_columns)
+        elif cfg.host_slots > 0:
+            self.spill = SpillTorchExecutor(
+                plan.single_schedule(), self.dtype,
+                use_pallas=cfg.use_pallas, device=self.device,
+                fuse_columns=cfg.fuse_columns)
         else:
             self.run = make_torch_executor(plan.single_schedule(), self.dtype,
                                            use_pallas=cfg.use_pallas,
@@ -533,14 +668,18 @@ class CholeskyPlan:
             self._single = self.schedule.to_single()
         return self._single
 
-    def compile(self, device=None) -> OOCSolver:
+    def compile(self, device=None, trace=None) -> OOCSolver:
         """A fresh solver over this plan's executor on ``device``
         (``"cuda"`` unless the caller asks for ``"cpu"``; raises when CUDA
         is asked for and absent).  With ``ndev > 1`` on the torch backend
         ``device`` is one device or a sequence of ``ndev``
         (:func:`logical_devices`).  The executor is built on first call and
         rebuilt only when the devices change.  The numpy backend needs no
-        card: its solver runs on the CPU."""
+        card: its solver runs on the CPU.
+
+        ``trace``: a :class:`repro_torch.obs.TraceRecorder` pinned as the
+        solver's default: every ``factor()`` without an explicit
+        ``trace=`` records into it (a per-call ``trace=`` overrides)."""
         backend = self.config.resolved_backend()
         if self.config.ndev > 1 and backend == "torch":
             devices = logical_devices(device, self.config.ndev)
@@ -549,7 +688,7 @@ class CholeskyPlan:
         with self._compile_lock:
             if self._executor is None or self._executor.devices != devices:
                 self._executor = _CompiledExecutor(self, devices)
-            return OOCSolver(self, self._executor)
+            return OOCSolver(self, self._executor, default_trace=trace)
 
     def simulate(self, hw, link_bw=None, record_timeline: bool = False):
         """Three-engine event model of the schedule on the hardware model
@@ -629,12 +768,14 @@ def plan(n: int, config: CholeskyConfig | None = None,
             msched = build_multidevice_schedule(
                 layout.nt, config.tb, config.ndev, config.policy,
                 config.cache_slots, pplan, grid=config.grid,
-                lookahead=config.lookahead or 0)
+                lookahead=config.lookahead or 0,
+                host_slots=config.host_slots)
             single = None
         else:
             single = build_schedule(layout.nt, config.tb, config.policy,
                                     config.cache_slots, pplan,
-                                    block=config.block)
+                                    block=config.block,
+                                    host_slots=config.host_slots)
             msched = MultiDeviceSchedule.from_single(single)
         p = CholeskyPlan(n=n, config=config, schedule=msched, _single=single)
         _PLAN_CACHE[key] = p

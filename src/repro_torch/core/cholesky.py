@@ -21,9 +21,20 @@ one stream per logical device, each over the host slab of its grid row,
 with the BCAST/RECV edges as class-precision wires ordered by CUDA events
 (port of the reference's ``MultiDeviceJaxExecutor``).
 
+``SpillTorchExecutor`` runs a single-device spill schedule (``host_slots >
+0``) over a bounded host tier of pinned slabs in front of a disk tile store
+(port of the reference's ``SpillJaxExecutor``).
+
+Every executor has a measured path, taken only for an active ``trace=``
+recorder: the op stream op by op, each op's CUDA stream synchronized after
+it, one span per op (``run_traced_torch``; ``MultiDeviceTorchExecutor`` and
+``SpillTorchExecutor`` with ``trace=``).  It runs the unfused interpreter,
+so a traced factor is bitwise the untraced unfused one.
+
 It also holds the reference's NumPy replays, ``run_schedule_numpy`` and
-``run_multidevice_numpy`` (``backend="numpy"``): host oracles that need no
-card, bitwise the reference's on the same schedule.
+``run_multidevice_numpy`` (``backend="numpy"``), with their spill forms
+``run_schedule_spill`` and ``run_multidevice_spill``: host oracles that need
+no card, bitwise the reference's on the same schedule.
 """
 from __future__ import annotations
 
@@ -102,21 +113,28 @@ def _np_interpret_op(host: np.ndarray, slots: np.ndarray, op: Op,
             l, slots[op.slot_c].T, lower=True).T
 
 
-def _no_spill(host_slots: int) -> None:
+def _no_spill(host_slots: int, why: str) -> None:
     if host_slots > 0:
-        raise NotImplementedError(
-            "spill schedules (host_slots > 0) are not ported yet "
-            "(ROADMAP queue 1, item 7)")
+        raise ValueError(why)
 
 
 def run_schedule_numpy(host_tiles: np.ndarray, sched: Schedule,
                        trace=None) -> np.ndarray:
     """Interpret the op stream with NumPy; returns the factored tile store.
 
+    A spill schedule (``host_slots > 0``) is replayed through a bounded
+    host cache over an in-memory backing store with the disk store's
+    interface; :func:`run_schedule_spill` drives a real on-disk
+    :class:`~repro_torch.core.spill.DiskTileStore`.
+
     ``trace``: an active recorder (``active``, ``now()``, ``record(...)``)
     records one span per op; ``None`` or an inactive one leaves the loop
     untouched."""
-    _no_spill(sched.host_slots)
+    if sched.host_slots > 0:
+        from .spill import ArrayTileStore
+        store = ArrayTileStore(host_tiles)
+        run_schedule_spill(store, sched, trace=trace)
+        return store.to_tiles()
     host = host_tiles.astype(np.float64).copy()
     tb = sched.tb
     nslots = _device_nslots(sched.ops)
@@ -134,6 +152,37 @@ def run_schedule_numpy(host_tiles: np.ndarray, sched: Schedule,
     return host
 
 
+def run_schedule_spill(store, sched: Schedule, trace=None):
+    """Replay a spill schedule against a disk-backed tile store in place.
+
+    ``store`` is a :class:`~repro_torch.core.spill.DiskTileStore` (or
+    anything with its tile interface) holding the input tiles; on return
+    it holds the factored tiles.  Host memory holds one ``[host_slots, tb,
+    tb]`` slab cache plus the slot buffer.  Returns the
+    :class:`~repro_torch.core.spill.SpilledHostStore`, whose fetch/spill
+    counters crosscheck the schedule.  An active ``trace`` recorder gets
+    one span per op, disk I/O included."""
+    from .spill import SpilledHostStore
+    if sched.host_slots < 1:
+        raise ValueError("run_schedule_spill needs a spill schedule "
+                         "(build with host_slots > 0)")
+    host = SpilledHostStore(store, sched.host_slots)
+    slots = np.zeros((_device_nslots(sched.ops), sched.tb, sched.tb),
+                     dtype=np.float64)
+    lad = sched.plan.ladder
+    if trace is not None and getattr(trace, "active", False):
+        for idx, op in enumerate(sched.ops):
+            t0 = trace.now()
+            _np_interpret_op(host, slots, op, lad)
+            trace.record(idx, op.kind.value, 0, t0, trace.now(), op.bytes,
+                         lad[op.cls], op.i, op.j)
+    else:
+        for op in sched.ops:
+            _np_interpret_op(host, slots, op, lad)
+    store.flush()
+    return host
+
+
 def run_multidevice_numpy(host_tiles: np.ndarray,
                           msched: MultiDeviceSchedule,
                           trace=None) -> np.ndarray:
@@ -142,8 +191,14 @@ def run_multidevice_numpy(host_tiles: np.ndarray,
     Each device gets its own slot buffer; the streams are replayed in
     :meth:`MultiDeviceSchedule.iter_column_order` (traced: in
     ``iter_dispatch_order``, each span tagged with its device stream and
-    dispatch phase), so every RECV observes the sender's finalized tile."""
-    _no_spill(msched.host_slots)
+    dispatch phase), so every RECV observes the sender's finalized tile.
+    A spill schedule replays through :func:`run_multidevice_spill` over an
+    in-memory backing store."""
+    if msched.host_slots > 0:
+        from .spill import ArrayTileStore
+        store = ArrayTileStore(host_tiles)
+        run_multidevice_spill(store, msched, trace=trace)
+        return store.to_tiles()
     host = host_tiles.astype(np.float64).copy()
     tb = msched.tb
     lad = msched.plan.ladder
@@ -162,20 +217,64 @@ def run_multidevice_numpy(host_tiles: np.ndarray,
     return host
 
 
+def run_multidevice_spill(store, msched: MultiDeviceSchedule, trace=None):
+    """Replay a multi-device spill schedule against one shared tile store.
+
+    Each device bounds its own host tier (one
+    :class:`~repro_torch.core.spill.SpilledHostStore` per stream) over the
+    one shared store.  A BCAST snapshots the sender's resident slab onto a
+    wire keyed ``(i, j, k, src)`` and each RECV consumes the wire, into a
+    panel slot (class-rounded) or, for a host-landing RECV, into the
+    receiver's own slab.  Replayed in dispatch order; returns the
+    per-device host stores (fetch/spill counters)."""
+    from .spill import SpilledHostStore
+    if msched.host_slots < 1:
+        raise ValueError("run_multidevice_spill needs a spill schedule "
+                         "(build with host_slots > 0)")
+    tb = msched.tb
+    lad = msched.plan.ladder
+    hosts = [SpilledHostStore(store, msched.host_slots)
+             for _ in range(msched.ndev)]
+    slots = [np.zeros((msched.stream_nslots(d), tb, tb), dtype=np.float64)
+             for d in range(msched.ndev)]
+    wires: dict = {}
+    recording = trace is not None and getattr(trace, "active", False)
+    for idx, (d, op, phase) in enumerate(
+            msched.iter_dispatch_order(with_phase=True)):
+        t0 = trace.now() if recording else 0
+        if op.kind is OpKind.BCAST:
+            wires[(op.i, op.j, op.k, op.src)] = np.array(hosts[d][op.i, op.j])
+        elif op.kind is OpKind.RECV:
+            t = wires[(op.i, op.j, op.k, op.src)]
+            if op.slot_c >= 0:
+                slots[d][op.slot_c] = _np_round(t, lad[op.cls])
+            else:
+                hosts[d][op.i, op.j] = t
+        else:
+            _np_interpret_op(hosts[d], slots[d], op, lad)
+        if recording:
+            trace.record(idx, op.kind.value, d, t0, trace.now(), op.bytes,
+                         lad[op.cls], op.i, op.j, phase)
+    store.flush()
+    return hosts
+
+
 # --------------------------------------------------------------------------
 # The torch executor
 # --------------------------------------------------------------------------
 
-def _host_tile(host: torch.Tensor, op: Op, lrow=None) -> torch.Tensor:
-    """The host store's view of tile ``(op.i, op.j)``; ``lrow`` maps a
-    global tile row to its row in a device's slab (None: the full store)."""
-    return host[op.i if lrow is None else lrow[op.i], op.j]
+def _host_tile(host: torch.Tensor, op: Op, at=None) -> torch.Tensor:
+    """The host store's view of tile ``(op.i, op.j)``.  ``at`` maps an op
+    to its index in ``host``: None for the full ``[nt, nt]`` store, a
+    device's ``(local row, j)`` in its slab, or the tile's slab in a spill
+    executor's host tier."""
+    return host[op.i, op.j] if at is None else host[at(op)]
 
 
 def _load(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
-          io: dict, lrow=None) -> None:
+          io: dict, at=None) -> None:
     s = slots[op.slot_c]
-    s.copy_(_host_tile(host, op, lrow), non_blocking=True)
+    s.copy_(_host_tile(host, op, at), non_blocking=True)
     r = _round(s, lad[op.cls])
     if r is not s:
         s.copy_(r)
@@ -184,30 +283,30 @@ def _load(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
 
 
 def _write_host(host: torch.Tensor, op: Op, tile: torch.Tensor,
-                io: dict, lrow=None) -> None:
-    _host_tile(host, op, lrow).copy_(tile, non_blocking=True)
+                io: dict, at=None) -> None:
+    _host_tile(host, op, at).copy_(tile, non_blocking=True)
     io["d2h_ops"] += 1
     io["d2h_bytes"] += tile.numel() * tile.element_size()
 
 
 def _store(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
-           io: dict, lrow=None) -> None:
+           io: dict, at=None) -> None:
     s = slots[op.slot_c]
     r = _round(s, lad[op.cls])
     if r is not s:
         s.copy_(r)
-    _write_host(host, op, s, io, lrow)
+    _write_host(host, op, s, io, at)
 
 
 def _interpret_op(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
-                  kf: dict, io: dict, lrow=None) -> None:
-    """Run one op against the host store (a device's slab, with ``lrow``)
-    and the slot buffer, in place."""
+                  kf: dict, io: dict, at=None) -> None:
+    """Run one op against the host store (addressed through ``at``, as
+    :func:`_host_tile`) and the slot buffer, in place."""
     kind = op.kind
     if kind is OpKind.LOAD:
-        _load(host, slots, op, lad, io, lrow)
+        _load(host, slots, op, lad, io, at)
     elif kind is OpKind.STORE:
-        _store(host, slots, op, lad, io, lrow)
+        _store(host, slots, op, lad, io, at)
     elif kind is OpKind.SYRK:
         slots[op.slot_c] = kf["syrk"](slots[op.slot_c], slots[op.slot_a])
     elif kind is OpKind.GEMM:
@@ -217,6 +316,35 @@ def _interpret_op(host: torch.Tensor, slots: torch.Tensor, op: Op, lad,
         slots[op.slot_c] = kf["potrf"](slots[op.slot_c])
     elif kind is OpKind.TRSM:
         slots[op.slot_c] = kf["trsm"](slots[op.slot_a], slots[op.slot_c])
+
+
+def _new_io() -> dict:
+    return {"h2d_ops": 0, "h2d_bytes": 0, "d2h_ops": 0, "d2h_bytes": 0}
+
+
+def _fence(stream) -> None:
+    """Wait until everything issued on ``stream`` has run (None: the CPU,
+    where an op has finished when it returns)."""
+    if stream is not None:
+        stream.synchronize()
+
+
+def _stream_of(device: torch.device):
+    """The stream the executors issue on for ``device`` (None: the CPU)."""
+    return (torch.cuda.current_stream(device) if device.type == "cuda"
+            else None)
+
+
+def _on_card(device: torch.device):
+    """Issue on ``device``'s card (the kernels launch on the current one)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _check_host(host: torch.Tensor, compute_dtype) -> None:
+    if host.dtype != compute_dtype or host.device.type != "cpu":
+        raise ValueError(f"host store must be a CPU {compute_dtype} "
+                         f"tensor, got {host.dtype} on {host.device}")
 
 
 # --------------------------------------------------------------------------
@@ -448,9 +576,9 @@ def _flush_group_fused(group, cuts, values, lad, kf):
     return host_writes
 
 
-def _run_ops_fused(ops, host, slots, lad, kf, io, lrow=None) -> None:
-    """Run an op stream with column-step fusion, in place (on a device's
-    slab with ``lrow``, as :func:`_interpret_op`).
+def _run_ops_fused(ops, host, slots, lad, kf, io, at=None) -> None:
+    """Run an op stream with column-step fusion, in place (the host store
+    addressed through ``at``, as :func:`_interpret_op`).
 
     Compute ops of one column accumulate into a pending group launched as
     one kernel.  Each op's operands are taken at its stream position: a
@@ -488,7 +616,7 @@ def _run_ops_fused(ops, host, slots, lad, kf, io, lrow=None) -> None:
     def run(upto):
         """Run ``group[:upto]`` and keep the rest pending."""
         for o, r in _flush_group_fused(group[:upto], cuts, values, lad, kf):
-            _write_host(host, o, r, io, lrow)
+            _write_host(host, o, r, io, at)
         del group[:upto]
         cuts.clear()
         for t, pos in list(dtiles.items()):
@@ -528,7 +656,7 @@ def _run_ops_fused(ops, host, slots, lad, kf, io, lrow=None) -> None:
                     # what came since its last flush)
                     cuts.append(len(group))
                     recent.clear()
-            _load(host, slots, op, lad, io, lrow)
+            _load(host, slots, op, lad, io, at)
         elif op.kind is OpKind.STORE:
             if group:
                 # ride in the group: the rounding applies at this exact
@@ -537,7 +665,7 @@ def _run_ops_fused(ops, host, slots, lad, kf, io, lrow=None) -> None:
                 dtiles[(op.i, op.j)] = len(group)
                 group.append((op, None, output(op.slot_c)))
             else:
-                _store(host, slots, op, lad, io, lrow)
+                _store(host, slots, op, lad, io, at)
         elif op.kind in _FUSABLE:
             if group and op.k != group[0][0].k:
                 flush()
@@ -567,7 +695,9 @@ def make_torch_executor(sched: Schedule, compute_dtype=torch.float64,
     as one ``fused_column_step`` launch (:func:`_run_ops_fused`); the
     transfers are unchanged.
     """
-    _no_spill(sched.host_slots)
+    _no_spill(sched.host_slots,
+              "make_torch_executor replays over the full host store; a "
+              "spill schedule bounds host residency: use SpillTorchExecutor")
     device = torch.device(device)
     tb = sched.tb
     lad = sched.plan.ladder
@@ -575,13 +705,9 @@ def make_torch_executor(sched: Schedule, compute_dtype=torch.float64,
     kf = _make_kernel_fns(use_pallas)
 
     def run(host: torch.Tensor) -> dict:
-        if host.dtype != compute_dtype or host.device.type != "cpu":
-            raise ValueError(f"host store must be a CPU {compute_dtype} "
-                             f"tensor, got {host.dtype} on {host.device}")
-        io = {"h2d_ops": 0, "h2d_bytes": 0, "d2h_ops": 0, "d2h_bytes": 0}
-        # the kernels launch on the current card: issue on ``device``'s
-        with (torch.cuda.device(device) if device.type == "cuda"
-              else contextlib.nullcontext()):
+        _check_host(host, compute_dtype)
+        io = _new_io()
+        with _on_card(device):
             slots = torch.zeros((nslots, tb, tb), dtype=compute_dtype,
                                 device=device)
             if fuse_columns:
@@ -592,6 +718,238 @@ def make_torch_executor(sched: Schedule, compute_dtype=torch.float64,
         return io
 
     return run
+
+
+def run_traced_torch(sched: Schedule, host: torch.Tensor, trace,
+                     compute_dtype=torch.float64, use_pallas: bool = False,
+                     device="cuda") -> dict:
+    """Single-device execution in *measured* mode (port of the reference's
+    measured single-device path): the op stream op by op through the
+    interpreter and kernel table of :func:`make_torch_executor`, with the
+    device's current stream synchronized after every op, so that each span
+    covers that op's execution and not its queue insertion (a LOAD's
+    non-blocking H2D and a STORE's D2H included).
+
+    Factors ``host`` in place, as the executor does, and returns the same
+    transfer counters, with every copy finished.  It records exactly one
+    span per schedule op; ALLOC/FREE do no work, so their spans are the
+    fence's own width.  A traced run is unfused even for a
+    ``fuse_columns`` plan, as the reference's is, so its factor is bitwise
+    the untraced unfused one.  The fences serialize the device, so a
+    traced run is slower by construction."""
+    _no_spill(sched.host_slots,
+              "run_traced_torch runs host-resident schedules; spill "
+              "schedules trace through SpillTorchExecutor")
+    _check_host(host, compute_dtype)
+    device = torch.device(device)
+    lad = sched.plan.ladder
+    kf = _make_kernel_fns(use_pallas)
+    io = _new_io()
+    with _on_card(device):
+        stream = _stream_of(device)
+        slots = torch.zeros((max(_device_nslots(sched.ops), 1), sched.tb,
+                             sched.tb), dtype=compute_dtype, device=device)
+        _fence(stream)                  # set-up outside the first span
+        for idx, op in enumerate(sched.ops):
+            t0 = trace.now()
+            _interpret_op(host, slots, op, lad, kf, io)
+            _fence(stream)
+            trace.record(idx, op.kind.value, 0, t0, trace.now(), op.bytes,
+                         lad[op.cls], op.i, op.j)
+    return io
+
+
+# --------------------------------------------------------------------------
+# The spill executor (a bounded host tier over a disk tile store)
+# --------------------------------------------------------------------------
+
+def _bind(where: dict, op: Op) -> None:
+    """FETCH ``op`` binds its tile to its slab, unbinding the slab's old
+    tile: the only change of the tile -> slab map."""
+    for t, s in list(where.items()):
+        if s == op.slot_c:
+            del where[t]
+    where[(op.i, op.j)] = op.slot_c
+
+
+class SpillTorchExecutor:
+    """Replay a single-device spill schedule (``host_slots > 0``).
+
+    Port of the reference's ``SpillJaxExecutor``.  The host tier is
+    ``[host_slots, tb, tb]`` slabs in the compute dtype, pinned for a card
+    (allocated at the first run and kept); the slot buffer lives on the
+    device.  The stream is cut at its FETCH/SPILL ops into segments.
+    Within a segment the tile -> slab map is constant (it changes only at
+    a FETCH), so its LOAD/STOREs address ``slab = where[(i, j)]``, the map
+    the reference bakes into its segments, through the in-core executor's
+    own interpreter (:func:`_interpret_op`) or, with ``fuse_columns``, its
+    fused groups (:func:`_run_ops_fused`), which never span a FETCH/SPILL
+    since the segment ends there.
+
+    FETCH and SPILL run on the host between segments: a FETCH reads one
+    tile from the store into its slab (the f64 store narrowed to the
+    compute dtype; a binding FETCH of 0 bytes reads nothing, as the next
+    op overwrites the slab), a SPILL writes one slab back (widened to f64:
+    both exact for values that went through an f32-or-lower class).  A
+    slab may still be read by a queued LOAD's H2D or written by a queued
+    STORE's D2H, so each segment records a CUDA event after its copies,
+    and a FETCH or SPILL first waits on the event of the last segment
+    that touched its slab.
+
+    ``last_io_stats`` holds the executed FETCH/SPILL op and byte counters
+    of the last run, as the reference's."""
+
+    def __init__(self, sched: Schedule, compute_dtype=torch.float64,
+                 use_pallas: bool = False, device="cuda",
+                 fuse_columns: bool = False):
+        if sched.host_slots < 1:
+            raise ValueError("SpillTorchExecutor needs a spill schedule "
+                             "(build with host_slots > 0)")
+        self.sched = sched
+        self.device = torch.device(device)
+        self.dtype = compute_dtype
+        self.last_io_stats = None
+        self._kf = _make_kernel_fns(use_pallas)
+        self._fuse = fuse_columns
+        self._nslots = max(_device_nslots(sched.ops), 1)
+        self._slabs = None
+        self._lock = threading.Lock()   # solvers of one plan share the tier
+        self._segments = self._build_segments()
+
+    def _build_segments(self) -> list:
+        """``("io", op)`` per FETCH/SPILL and ``("run", ops, at, slabs)``
+        per stretch between them: its ops, the slab of each tile, and the
+        slabs its LOAD/STOREs copy to or from."""
+        where: dict = {}
+        segments: list = []
+        pending: list = []
+
+        def close_run():
+            if pending:
+                snap = dict(where)
+                segments.append(("run", list(pending),
+                                 lambda o: snap[(o.i, o.j)],
+                                 {snap[(o.i, o.j)] for o in pending
+                                  if o.kind in (OpKind.LOAD, OpKind.STORE)}))
+                pending.clear()
+
+        for op in self.sched.ops:
+            if op.kind in HOST_IO:
+                close_run()
+                if op.kind is OpKind.FETCH:
+                    _bind(where, op)
+                segments.append(("io", op))
+            elif op.kind not in (OpKind.ALLOC, OpKind.FREE):
+                pending.append(op)
+        close_run()
+        return segments
+
+    def _tier(self):
+        """The host tier and a zeroed slot buffer."""
+        tb = self.sched.tb
+        if self._slabs is None:
+            self._slabs = torch.zeros(
+                (self.sched.host_slots, tb, tb), dtype=self.dtype,
+                pin_memory=self.device.type == "cuda")
+        slots = torch.zeros((self._nslots, tb, tb), dtype=self.dtype,
+                            device=self.device)
+        return self._slabs, slots
+
+    def _disk_io(self, store, slabs, op, disk: dict) -> None:
+        """A FETCH or SPILL between the slab and the store, on the host."""
+        if op.kind is OpKind.FETCH:
+            disk["fetch_ops"] += 1
+            disk["fetched_bytes"] += op.bytes
+            if op.bytes:
+                slabs[op.slot_c].copy_(
+                    torch.from_numpy(store.read_tile(op.i, op.j)))
+        else:
+            disk["spill_ops"] += 1
+            disk["spilled_bytes"] += op.bytes
+            store.write_tile(op.i, op.j,
+                             slabs[op.slot_c].to(torch.float64).numpy())
+
+    def run_store(self, store, trace=None) -> dict:
+        """Factor the tile store in place (input tiles -> L tiles); returns
+        the executed H2D/D2H counters, every copy finished.  An active
+        ``trace`` recorder takes the measured path: the stream op by op,
+        each op fenced, one span per op, disk I/O included."""
+        with self._lock:
+            if trace is not None and getattr(trace, "active", False):
+                return self._run_traced_store(store, trace)
+            return self._run_store(store)
+
+    def _run_store(self, store) -> dict:
+        lad = self.sched.plan.ladder
+        io = _new_io()
+        disk = dict.fromkeys(("fetch_ops", "spill_ops", "fetched_bytes",
+                              "spilled_bytes"), 0)
+        with _on_card(self.device):
+            stream = _stream_of(self.device)
+            slabs, slots = self._tier()
+            ready: dict = {}            # slab -> event after its last copy
+            for seg in self._segments:
+                if seg[0] == "io":
+                    op = seg[1]
+                    ev = ready.pop(op.slot_c, None)
+                    if ev is not None:
+                        ev.synchronize()
+                    self._disk_io(store, slabs, op, disk)
+                    continue
+                _, ops, at, touched = seg
+                if self._fuse:
+                    _run_ops_fused(ops, slabs, slots, lad, self._kf, io, at)
+                else:
+                    for op in ops:
+                        _interpret_op(slabs, slots, op, lad, self._kf, io,
+                                      at)
+                if stream is not None and touched:
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                    ready.update(dict.fromkeys(touched, ev))
+            _fence(stream)
+        store.flush()
+        self.last_io_stats = disk
+        return io
+
+    def _run_traced_store(self, store, trace) -> dict:
+        """The measured replay: the stream op by op, each op fenced, with
+        the tile -> slab map kept as the segments bake it."""
+        lad = self.sched.plan.ladder
+        io = _new_io()
+        disk = dict.fromkeys(("fetch_ops", "spill_ops", "fetched_bytes",
+                              "spilled_bytes"), 0)
+        where: dict = {}
+
+        def at(o):
+            return where[(o.i, o.j)]
+
+        with _on_card(self.device):
+            stream = _stream_of(self.device)
+            slabs, slots = self._tier()
+            _fence(stream)              # set-up outside the first span
+            for idx, op in enumerate(self.sched.ops):
+                t0 = trace.now()
+                if op.kind in HOST_IO:
+                    if op.kind is OpKind.FETCH:
+                        _bind(where, op)
+                    self._disk_io(store, slabs, op, disk)
+                else:
+                    _interpret_op(slabs, slots, op, lad, self._kf, io, at)
+                    _fence(stream)
+                trace.record(idx, op.kind.value, 0, t0, trace.now(),
+                             op.bytes, lad[op.cls], op.i, op.j)
+        store.flush()
+        self.last_io_stats = disk
+        return io
+
+    def __call__(self, host_tiles: np.ndarray, trace=None) -> np.ndarray:
+        """Array in, array out: factor a ``[nt, nt, tb, tb]`` tile array
+        through an in-memory backing store; returns the f64 tiles."""
+        from .spill import ArrayTileStore
+        store = ArrayTileStore(host_tiles)
+        self.run_store(store, trace=trace)
+        return store.to_tiles()
 
 
 # --------------------------------------------------------------------------
@@ -662,6 +1020,11 @@ class MultiDeviceTorchExecutor:
     RECV (``slot_c < 0``) into its slab with a D2H.  A wire is dropped
     after its last receiver.
 
+    With an active ``trace`` recorder the call takes the measured path
+    instead (:meth:`_run_traced`): every op of every stream in
+    ``iter_dispatch_order``, unfused, on its device's stream, which is
+    synchronized after each op, one span per op.
+
     Numerics are op for op those of :func:`run_multidevice_numpy`.
     ``last_transfer_stats`` holds the executed BCAST/RECV op and byte
     counters of the last run, as the reference counts them.
@@ -674,7 +1037,10 @@ class MultiDeviceTorchExecutor:
             raise ValueError(
                 f"MultiDeviceTorchExecutor needs ndev >= 2 (got "
                 f"{msched.ndev}); use make_torch_executor for one device")
-        _no_spill(msched.host_slots)
+        _no_spill(msched.host_slots,
+                  "the multi-device executor keeps full row slabs; "
+                  "multi-device spill schedules run on the NumPy replay "
+                  "(backend='numpy')")
         from .api import logical_devices
         devices = logical_devices(devices, msched.ndev)
         self.msched = msched
@@ -688,6 +1054,8 @@ class MultiDeviceTorchExecutor:
                       for d in range(msched.ndev)]
         self._local_row = [{g: l for l, g in enumerate(rows)}
                            for rows in self._rows]
+        self._at = [lambda o, lrow=lrow: (lrow[o.i], o.j)
+                    for lrow in self._local_row]
         self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
                          else None for d in devices]
         self._replicas: dict = {}   # d -> its pinned slab (2D grid peers)
@@ -746,14 +1114,19 @@ class MultiDeviceTorchExecutor:
         x.record_stream(torch.cuda.current_stream(x.device))
         return x.to(self.devices[d], non_blocking=True)
 
-    def __call__(self, host: torch.Tensor) -> dict:
+    def __call__(self, host: torch.Tensor, trace=None) -> dict:
         """Factor the ``[nt, nt, tb, tb]`` CPU store (compute dtype, pinned
         for a card) in place; returns the executed transfer counters summed
-        over the devices.  Every stream has finished when it returns."""
+        over the devices.  Every stream has finished when it returns.  An
+        active ``trace`` recorder takes the measured path."""
         with self._lock:
+            if trace is not None and getattr(trace, "active", False):
+                return self._run_traced(host, trace)
             return self._factor(host)
 
-    def _factor(self, host: torch.Tensor) -> dict:
+    def _setup(self, host: torch.Tensor) -> tuple:
+        """Each device's slab (a view of ``host``, or a grid-row peer's
+        replica filled from it) and zeroed slot buffer."""
         msched = self.msched
         nt, tb, cdt = msched.nt, msched.tb, self.dtype
         if (host.dtype != cdt or host.device.type != "cpu"
@@ -763,7 +1136,6 @@ class MultiDeviceTorchExecutor:
                 f"tensor, got {host.dtype} {tuple(host.shape)} on "
                 f"{host.device}")
         p, q = msched.grid
-        lad = msched.plan.ladder
         slabs, slots = [], []
         for d, dev in enumerate(self.devices):
             slab = host[d // q::p]
@@ -777,15 +1149,71 @@ class MultiDeviceTorchExecutor:
                 slots.append(torch.zeros(
                     (max(msched.stream_nslots(d), 1), tb, tb), dtype=cdt,
                     device=dev))
+        return slabs, slots
+
+    @staticmethod
+    def _counters() -> tuple:
         stats = dict.fromkeys(("bcast_ops", "recv_ops", "bcast_bytes",
                                "recv_bytes"), 0)
         io = dict.fromkeys(("h2d_ops", "h2d_bytes", "d2h_ops", "d2h_bytes",
                             "wire_h2d_ops", "wire_h2d_bytes",
                             "recv_d2h_ops", "recv_d2h_bytes"), 0)
+        return stats, io
+
+    def _cut(self, d: int, o: Op, slab, io: dict, stats: dict) -> tuple:
+        """Cut BCAST ``o``'s wire from device ``d``'s slab, on its stream:
+        ``(key, payload, scale)``."""
+        tile = torch.empty((self.msched.tb,) * 2, dtype=self.dtype,
+                           device=self.devices[d])
+        tile.copy_(_host_tile(slab, o, self._at[d]), non_blocking=True)
+        io["wire_h2d_ops"] += 1
+        io["wire_h2d_bytes"] += _nbytes(tile)
+        payload, scale = _make_wire(tile, self.msched.plan.ladder[o.cls])
+        key = _wire_key(o)
+        stats["bcast_ops"] += 1
+        stats["bcast_bytes"] += _nbytes(payload) * self._nrecv[key]
+        return key, payload, scale
+
+    def _land(self, d: int, o: Op, payload, scale, slab, slots, io: dict,
+              stats: dict) -> None:
+        """Land RECV ``o``'s wire on device ``d``, on its stream: into its
+        slot, or for a host-landing RECV into its slab."""
+        payload = self._take(payload, d)
+        t = _unwire((payload, self._take(scale, d)), self.dtype)
+        if o.slot_c >= 0:
+            slots[o.slot_c].copy_(t)
+        else:
+            _host_tile(slab, o, self._at[d]).copy_(t, non_blocking=True)
+            io["recv_d2h_ops"] += 1
+            io["recv_d2h_bytes"] += _nbytes(t)
+        stats["recv_ops"] += 1
+        stats["recv_bytes"] += _nbytes(payload)
+
+    def _finish(self, host: torch.Tensor, slabs: list, stats: dict) -> None:
+        """Wait for every stream, gather the diagonal tiles a 2D grid never
+        ships, and keep the run's BCAST/RECV counters."""
+        for s in self._streams:
+            _fence(s)
+        p, q = self.msched.grid
+        if q > 1:
+            # slabs are replicated along grid rows and kept coherent by the
+            # row-scoped broadcast, except the diagonal tiles, which no
+            # later task reads and which are never shipped: read each one
+            # from its own diagonal owner
+            for k in range(self.msched.nt):
+                if k % q:
+                    dv = grid_owner(k, k, p, q)
+                    host[k, k].copy_(slabs[dv][self._local_row[dv][k], k])
+        self.last_transfer_stats = stats
+
+    def _factor(self, host: torch.Tensor) -> dict:
+        lad = self.msched.plan.ladder
+        slabs, slots = self._setup(host)
+        stats, io = self._counters()
         wire_of: dict = {}                  # key -> (payload, scale, event)
         pending = dict(self._nrecv)         # key -> receivers still to land
         for d, recvs, body, bcasts in self._segments:
-            stream, lrow = self._streams[d], self._local_row[d]
+            stream, at = self._streams[d], self._at[d]
             with self._on(d):
                 for o in recvs:
                     key = _wire_key(o)
@@ -795,56 +1223,62 @@ class MultiDeviceTorchExecutor:
                         del wire_of[key]
                     if ready is not None:
                         stream.wait_event(ready)
-                    payload = self._take(payload, d)
-                    t = _unwire((payload, self._take(scale, d)), cdt)
-                    if o.slot_c >= 0:
-                        slots[d][o.slot_c].copy_(t)
-                    else:
-                        _host_tile(slabs[d], o, lrow).copy_(
-                            t, non_blocking=True)
-                        io["recv_d2h_ops"] += 1
-                        io["recv_d2h_bytes"] += _nbytes(t)
-                    stats["recv_ops"] += 1
-                    stats["recv_bytes"] += _nbytes(payload)
+                    self._land(d, o, payload, scale, slabs[d], slots[d], io,
+                               stats)
                 if self._fuse:
                     _run_ops_fused(body, slabs[d], slots[d], lad, self._kf,
-                                   io, lrow)
+                                   io, at)
                 else:
                     for o in body:
                         _interpret_op(slabs[d], slots[d], o, lad, self._kf,
-                                      io, lrow)
-                made = []
-                for o in bcasts:
-                    tile = torch.empty((tb, tb), dtype=cdt,
-                                       device=self.devices[d])
-                    tile.copy_(_host_tile(slabs[d], o, lrow),
-                               non_blocking=True)
-                    io["wire_h2d_ops"] += 1
-                    io["wire_h2d_bytes"] += _nbytes(tile)
-                    payload, scale = _make_wire(tile, lad[o.cls])
-                    key = _wire_key(o)
-                    stats["bcast_ops"] += 1
-                    stats["bcast_bytes"] += _nbytes(payload) * self._nrecv[key]
-                    made.append((key, payload, scale))
+                                      io, at)
+                made = [self._cut(d, o, slabs[d], io, stats) for o in bcasts]
                 ready = None
                 if made and stream is not None:
                     ready = torch.cuda.Event()
                     ready.record(stream)
                 for key, payload, scale in made:
                     wire_of[key] = (payload, scale, ready)
-        for s in self._streams:
-            if s is not None:
-                s.synchronize()
-        if q > 1:
-            # slabs are replicated along grid rows and kept coherent by the
-            # row-scoped broadcast, except the diagonal tiles, which no
-            # later task reads and which are never shipped: read each one
-            # from its own diagonal owner
-            for k in range(nt):
-                if k % q:
-                    dv = grid_owner(k, k, p, q)
-                    host[k, k].copy_(slabs[dv][self._local_row[dv][k], k])
-        self.last_transfer_stats = stats
+        self._finish(host, slabs, stats)
+        return io
+
+    def _run_traced(self, host: torch.Tensor, trace) -> dict:
+        """The measured replay (the reference's ``_run_traced``): every op
+        of every stream in ``iter_dispatch_order``, unfused, issued on its
+        logical device's stream, which is synchronized after the op; one
+        span per op, tagged with its device and dispatch phase.  Wires are
+        cut and landed as :meth:`_factor` does, each at its op's place in
+        the order, and ``last_transfer_stats`` is kept as there."""
+        lad = self.msched.plan.ladder
+        slabs, slots = self._setup(host)
+        for s in self._streams:             # set-up outside the first span
+            _fence(s)
+        stats, io = self._counters()
+        wire_of: dict = {}
+        pending = dict(self._nrecv)
+        for idx, (d, op, phase) in enumerate(
+                self.msched.iter_dispatch_order(with_phase=True)):
+            t0 = trace.now()
+            with self._on(d):
+                if op.kind is OpKind.BCAST:
+                    key, payload, scale = self._cut(d, op, slabs[d], io,
+                                                    stats)
+                    wire_of[key] = (payload, scale)
+                elif op.kind is OpKind.RECV:
+                    key = _wire_key(op)
+                    payload, scale = wire_of[key]
+                    pending[key] -= 1
+                    if pending[key] == 0:
+                        del wire_of[key]
+                    self._land(d, op, payload, scale, slabs[d], slots[d],
+                               io, stats)
+                else:
+                    _interpret_op(slabs[d], slots[d], op, lad, self._kf, io,
+                                  self._at[d])
+                _fence(self._streams[d])
+            trace.record(idx, op.kind.value, d, t0, trace.now(), op.bytes,
+                         lad[op.cls], op.i, op.j, phase)
+        self._finish(host, slabs, stats)
         return io
 
 

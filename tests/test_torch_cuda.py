@@ -1018,3 +1018,132 @@ def test_cuda_single_device_factor_on_the_last_card(cuda):
         else:
             assert launches["potrf"] == n // tb
         assert np.abs(got - want).max() < 1e-4
+
+
+# --------------------------------------------------------------------------
+# the measured trace and the disk tier on the card
+# --------------------------------------------------------------------------
+
+def _traced_pair(cfg, n, a, devices):
+    """The traced and the untraced unfused factor of ``cfg`` on
+    ``devices``, with the trace: (traced tiles, untraced tiles, recorder,
+    solver)."""
+    import dataclasses
+
+    import repro_torch
+    unfused = dataclasses.replace(cfg, fuse_columns=False)
+    solver = repro_torch.plan(n, cfg).compile(device=devices)
+    rec = repro_torch.TraceRecorder()
+    solver.factor(a, materialize=False, trace=rec)
+    traced = solver.tiles.clone()
+    base = repro_torch.plan(n, unfused).compile(device=devices)
+    base.factor(a, materialize=False)
+    return traced, base.tiles.clone(), rec, solver
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["single", "two-on-one-card"])
+def test_cuda_traced_factor_one_span_per_op(cuda, layout):
+    """A traced factor on the card: one fenced span per op (ALLOC/FREE
+    included), in dispatch order, bitwise the untraced unfused factor,
+    with the per-op kernels and no fused launch (the config asks for
+    fused columns, which a traced run leaves out)."""
+    import repro_torch
+    n, tb = 1024, 256
+    a = _spd(n).astype(np.float64)
+    ndev = 1 if layout == "single" else 2
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, ladder="gpu", eps_target=1e-6, use_pallas=True,
+        compute_dtype=torch.float32, fuse_columns=True,
+        ndev=ndev).specialize(a)
+    devices = cuda if ndev == 1 else [cuda] * 2
+    ops.reset_counts()
+    traced, base, rec, solver = _traced_pair(cfg, n, a, devices)
+    sched = solver.schedule
+    want = [op for _, op in sched.iter_dispatch_order()]
+    assert len(rec) == len(want) and rec.dropped == 0
+    assert [s.kind for s in rec.spans] == [op.kind.value for op in want]
+    assert {s.device for s in rec.spans} == set(range(ndev))
+    assert torch.equal(traced, base)
+    assert all(s.t_end > s.t_start for s in rec.spans)
+
+
+def _spill_groups_in_core(ex, tiles, device):
+    """The spill executor's ops, grouped as it groups them, run against a
+    full in-core store instead of the disk tier; the f64 factored store."""
+    from repro_torch.core.cholesky import (_interpret_op, _new_io,
+                                           _run_ops_fused)
+    host = torch.from_numpy(tiles).to(ex.dtype)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    tb = ex.sched.tb
+    slots = torch.zeros((ex._nslots, tb, tb), dtype=ex.dtype, device=device)
+    lad, io = ex.sched.plan.ladder, _new_io()
+    for seg in ex._segments:
+        if seg[0] != "run":
+            continue
+        if ex._fuse:
+            _run_ops_fused(seg[1], host, slots, lad, ex._kf, io)
+        else:
+            for op in seg[1]:
+                _interpret_op(host, slots, op, lad, ex._kf, io)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return host.double().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+def test_cuda_spill_executor_bitwise_incore(cuda, fuse, tmp_path):
+    """``SpillTorchExecutor`` over a DiskTileStore on the card, twice, with
+    the executed FETCH/SPILL counters and the H2D/D2H copies the
+    schedule's.  The f64 store narrows to f32 on FETCH and widens on
+    SPILL, both exact here, so the disk tier is pure bookkeeping: the
+    factor is bitwise its own op groups run against an in-core store, and
+    unfused bitwise the in-core executor's.  Fused, its groups end at each
+    FETCH/SPILL, as the reference's do, where the in-core executor
+    launches one a column: their f32 sums run in other orders, and the two
+    agree to the f32 factor's accuracy, 1e-4 of LAPACK's."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.core.cholesky import SpillTorchExecutor
+    from repro_torch.core.schedule import OpKind
+    from repro_torch.core.tiling import to_tiles
+    n, tb = 1024, 128
+    a = _spd(n).astype(np.float64)
+    cfg = repro_torch.CholeskyConfig(
+        tb=tb, ladder="gpu", eps_target=1e-6, use_pallas=True,
+        compute_dtype=torch.float32, fuse_columns=fuse).specialize(a)
+    incore = repro_torch.plan(n, cfg).compile(device=cuda)
+    incore.factor(a, materialize=False)
+    want = incore.tiles.double().numpy()
+    sched = repro_torch.plan(
+        n, dataclasses.replace(cfg, host_slots=10)).single_schedule()
+    ex = SpillTorchExecutor(sched, torch.float32, use_pallas=True,
+                            device=cuda, fuse_columns=fuse)
+    lower = np.tril(np.ones((n // tb, n // tb), bool))
+    groups = _spill_groups_in_core(ex, to_tiles(a, tb), cuda)
+    for run in range(2):
+        store = repro_torch.DiskTileStore.from_tiles(
+            str(tmp_path / f"{run}.npy"), to_tiles(a, tb))
+        ops.reset_counts()
+        io = ex.run_store(store)
+        launches = ops.launch_counts()
+        got = store.to_tiles()
+        assert np.array_equal(got[lower], groups[lower]), run
+        if fuse:
+            assert np.abs(got[lower] - want[lower]).max() < 1e-4
+        else:
+            assert np.array_equal(got[lower], want[lower]), run
+        assert ex.last_io_stats == {
+            "fetch_ops": sched.count(OpKind.FETCH),
+            "spill_ops": sched.count(OpKind.SPILL),
+            "fetched_bytes": sched.fetch_bytes(),
+            "spilled_bytes": sched.spill_bytes()}
+        assert io["h2d_ops"] == sched.count(OpKind.LOAD)
+        assert io["d2h_ops"] == sched.count(OpKind.STORE)
+        if fuse:
+            assert launches["fused_column_step"] > 0
+        else:
+            assert launches["potrf"] == n // tb

@@ -190,19 +190,38 @@ def test_compile_without_cuda_raises(monkeypatch):
     assert p.compile(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [
-    # the multi-device executor is ported; its disk tier is not
-    dict(ndev=2, host_slots=4), dict(host_slots=4),
-    pytest.param(dict(fuse_columns=True, ndev=2, host_slots=4),
-                 id="fuse_columns"),
-    dict(tb=0), dict(policy="auto"),
-    # the NumPy replays and the hw presets are ported; the spill replay and
-    # the tuner that the presets drive are not
-    dict(backend="numpy", host_slots=4), dict(hw="h100-pcie", tb=0),
-], ids=lambda kw: next(iter(kw)))
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.CholeskyConfig(**{"tb": 32, **kw})
+_TUNER = (NotImplementedError, "ROADMAP")
+_MULTI_SPILL = (ValueError, "backend='numpy'")
+
+
+@pytest.mark.parametrize("kw,raises", [
+    # the disk tier is ported: one device runs it on either backend;
+    # several devices run it on the NumPy replay only, which the config
+    # names instead of resolving to it quietly
+    (dict(ndev=2, host_slots=4), _MULTI_SPILL),
+    (dict(host_slots=4), None),
+    (dict(fuse_columns=True, ndev=2, host_slots=4), _MULTI_SPILL),
+    # the tuner is not ported, nor is the tb=0 search the presets drive
+    (dict(tb=0), _TUNER), (dict(policy="auto"), _TUNER),
+    (dict(backend="numpy", host_slots=4), None),
+    (dict(hw="h100-pcie", tb=0), _TUNER),
+], ids=["ndev", "host_slots", "fuse_columns", "tb", "policy", "backend",
+        "hw"])
+def test_unported_options_raise(kw, raises):
+    """The options of slices not ported yet raise their ROADMAP item; the
+    disk tier's cases, ported, plan and factor (one device) or name the
+    backend they need (several)."""
+    kw = {"tb": 32, **kw}
+    if raises is not None:
+        with pytest.raises(raises[0], match=raises[1]):
+            repro_torch.CholeskyConfig(**kw)
+        return
+    cfg = repro_torch.CholeskyConfig(**kw)
+    a = random_spd(128, seed=2)
+    solver = repro_torch.plan(128, cfg).compile(device="cpu")
+    assert np.abs(solver.factor(a) - np.linalg.cholesky(a)).max() < 1e-10
+    t = solver.stats["transfers"]
+    assert t["fetched_bytes"] == t["scheduled_fetch_bytes"] > 0
 
 
 def test_config_from_reference_mirrors_fields():

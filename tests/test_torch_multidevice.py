@@ -490,8 +490,17 @@ def test_devices_resolve(monkeypatch):
 
 
 def test_multidevice_disk_tier_still_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    """Multi-device spill schedules run on the NumPy replay only (as the
+    reference's), and the torch backend names it rather than resolving to
+    it quietly; the executor itself refuses a spill schedule."""
+    with pytest.raises(ValueError, match="backend='numpy'"):
         repro_torch.CholeskyConfig(tb=TB, ndev=4, host_slots=4)
+    assert repro_torch.CholeskyConfig(
+        tb=TB, ndev=4, host_slots=4, backend="numpy").host_slots == 4
+    msched = repro_torch.build_multidevice_schedule(4, TB, 4, "v3",
+                                                    host_slots=4)
+    with pytest.raises(ValueError, match="NumPy replay"):
+        chol.MultiDeviceTorchExecutor(msched, devices="cpu")
 
 
 def test_config_from_reference_carries_the_layout():

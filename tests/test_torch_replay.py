@@ -129,17 +129,30 @@ def test_traced_replay_records_one_span_per_op(multi):
 
 @pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
 def test_spill_schedules_raise_item_7(multi):
+    """Item 7, the disk tier, is ported: the replays take spill schedules
+    through a bounded host tier, bitwise the reference's replays and the
+    port's own host-resident replay, and ``backend="numpy"`` plans them."""
     nt = N // TB
+    tiles = to_tiles(_matern(), TB)
     if multi:
         s = schedule.build_multidevice_schedule(nt, TB, 2, "v3", host_slots=6)
-        run = chol.run_multidevice_numpy
+        rs = ref_schedule.build_multidevice_schedule(nt, TB, 2, "v3",
+                                                     host_slots=6)
+        plain = schedule.build_multidevice_schedule(nt, TB, 2, "v3")
+        run, ref_run = chol.run_multidevice_numpy, \
+            ref_chol.run_multidevice_numpy
     else:
         s = schedule.build_schedule(nt, TB, "v3", host_slots=6)
-        run = chol.run_schedule_numpy
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        run(to_tiles(_matern(), TB), s)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        repro_torch.CholeskyConfig(tb=TB, backend="numpy", host_slots=6)
+        rs = ref_schedule.build_schedule(nt, TB, "v3", host_slots=6)
+        plain = schedule.build_schedule(nt, TB, "v3")
+        run, ref_run = chol.run_schedule_numpy, ref_chol.run_schedule_numpy
+    got = run(tiles, s)
+    _same(got, ref_run(tiles, rs))
+    _same(got, run(tiles, plain))
+    cfg = repro_torch.CholeskyConfig(tb=TB, backend="numpy", host_slots=6,
+                                     ndev=2 if multi else 1)
+    _same(np.tril(from_tiles(got)),
+          repro_torch.plan(N, cfg).compile().factor(_matern()))
 
 
 def _api_pair(a, **kw):
@@ -236,10 +249,14 @@ def test_hw_errors_match_reference(kw):
 ], ids=["ndev", "grid", "lookahead"])
 def test_multidevice_on_torch_raises_item_6(kw, backend):
     """Item 6, the multi-device executor, is ported: these layouts plan on
-    the torch backend; with the disk tier they still raise its item, 7."""
+    the torch backend.  With the disk tier (item 7, ported) they run on the
+    NumPy replay only, and ``auto`` names that backend instead of resolving
+    to it quietly; with lookahead the disk tier is refused, as the
+    reference refuses it."""
     assert repro_torch.CholeskyConfig(
         tb=TB, backend=backend, **kw).resolved_backend() == "torch"
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    match = "lookahead" if "lookahead" in kw else "backend='numpy'"
+    with pytest.raises(ValueError, match=match):
         repro_torch.CholeskyConfig(tb=TB, backend=backend, host_slots=4,
                                    **kw)
 
