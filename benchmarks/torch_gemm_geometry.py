@@ -6,7 +6,7 @@
 For each square size n (C - A B^T with n x n f32 operands, TF32 off) and
 each split 1, 2, 4 and 8 of the kernel's 128 x 64 tiles (split 1 is one CTA
 a tile walking all of K: the FFMA main loop alone, no cluster reduction),
-the profiler's device time a call (``chip_smoke.device_ms``) beside the
+the device time a call (``chip_smoke.device_ms``) beside the
 wrapper's own geometry, ``c - a @ b.T`` and ``a @ b.T`` alone, and the rate
 2 n^3 / time.  Needs a CUDA device; writes
 ``chiprun_out/torch_gemm_geometry.json``.

@@ -13,8 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the card at the main path's tile size (f32) and at bf16 (fp8 operands
    for the GEMM), with the tolerances of ``tests/test_kernels.py``, and its
    time beside the plain version's, one PyTorch library call's and its
-   bound (CUDA events around back-to-back calls, and the profiler's device
-   time a call, which leaves out the device's waits on the host); the
+   bound (CUDA events around back-to-back calls, and the device time a
+   call, from events around calls queued behind a spin kernel, which
+   leaves out the device's waits on the host); the
    cluster split-K GEMM at every geometry tried, and at ragged M, N and K
    with every operand and output type, and the cluster split-K SYRK at
    ragged M and K, each entry at its own scale (the plain version without
@@ -113,9 +114,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt; both logit checks must reject two faults (the flash kernel
    without its causal mask, the attention output dropped); decode tokens/s
    is the median of six windows;
-11. the kernels line (JSON; each kernel also with its launches in config
-   A and in the disk tier) and the last line,
-   ``{"ok": true, "device": {...}}``.
+11. tuner and service: ``repro_torch.tune.calibrate`` on the card at the
+   main path's tile size in f32 (every one of the five Cholesky kernels
+   launched; ``mem_bytes`` the card's total memory; each per-class rate
+   logged, the f32 GEMM's beside phase 3's device time); ``tune`` at n
+   against that measured model for the main path's configuration with
+   ``tb=0, policy="auto"`` and the matrix as the precision sample (search
+   seconds and the top candidates' simulated makespans logged as model
+   readings; no candidate past TRSM's, POTRF's or the fused step's tile
+   limit); the winner's per-op kernels against their plain versions at its
+   tile size (phase 3's f32 tolerances), then its factor through
+   ``plan(...).compile()`` under phase 4's checks; a model refitted from
+   phase 8's trace (``calibrate(refine_from=)``), the trace's drift against
+   it, the measured model and the ``h100-pcie`` preset (logged); then a
+   ``SolverService`` with two workers on the measured model, two tenants on
+   the main path's configuration, each with its own seeded matrix, factored
+   at once: each factor and logdet bitwise its solo one, launches exactly
+   the two schedules', both admitted on the card's memory; a burst of 64
+   single-RHS solves a tenant (window 5 ms, ``max_batch`` 32) coalesced to
+   an occupancy of at least 2, each within 1e-10 relative of the solo
+   solve; and the plan under the model with one byte less than its
+   ``plan_device_bytes`` refused with ``AdmissionError``, no kernel
+   launched;
+12. the kernels line (JSON; each kernel also with its launches in config
+   A, in the disk tier, in calibration, in the tuned factor and in the
+   served pair) and the last line, ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
 ``chiprun_out/chip_smoke.json`` as well.  ``--n``, ``--mxp-n``, ``--geo-n``,
@@ -199,21 +222,16 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 def device_ms(fn, reps: int = 20) -> float:
-    """Device time of one call: the CUDA kernels (and copies) it launches,
-    summed from ``torch.profiler`` over ``reps`` calls. Unlike
-    :func:`time_ms` it leaves out the gaps where the device waits on the
-    host's launches, which a call of tens of microseconds can have."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(ev, "self_device_time_total",
-                           getattr(ev, "self_cuda_time_total", 0))
-                   for ev in prof.key_averages())
-    return total_us / 1e3 / reps
+    """Device time of one call in ms: CUDA events around ``reps`` calls
+    that the host queued behind a spin kernel, so that the device runs them
+    back to back (``repro_torch.tune.calibrate.call_seconds``, which
+    calibration times with too). Unlike :func:`time_ms` it leaves out the
+    gaps where the device waits on the host's launches, which a call of
+    tens of microseconds can have. It raises when the host could not queue
+    the calls before the device reached them; it never reads 0."""
+    from repro_torch.tune.calibrate import call_seconds
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return call_seconds(fn, reps, dev) * 1e3
 
 
 def _spd(n, g, dev, dtype=torch.float32):
@@ -221,16 +239,18 @@ def _spd(n, g, dev, dtype=torch.float32):
     return (x @ x.T + 2.0 * torch.eye(n, device=dev)).to(dtype)
 
 
-def kernel_checks(tb: int, dev, g) -> dict:
+def kernel_checks(tb: int, dev, g, dtypes=(torch.float32, torch.bfloat16,
+                                            torch.float8_e4m3fn),
+                  timed: bool = True) -> dict:
     """Each kernel against its plain version at tile size ``tb``; f32 is
-    the main path's dtype and the one timed."""
+    the main path's dtype and the one timed (``timed``)."""
     from repro_torch.kernels import mxp_gemm, potrf, ref, syrk, trsm
     tol = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
     results = {}
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False    # library calls in f32
     try:
-        for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+        for dt in dtypes:
             cdt = torch.float32 if dt == torch.float8_e4m3fn else dt
             t = tol[cdt]
             c = _spd(tb, g, dev, cdt)
@@ -282,7 +302,7 @@ def kernel_checks(tb: int, dev, g) -> dict:
                         ctrl > 1.0 or not syrk_control_resolvable(c, a)),
                             f"{tag}: entry ratio {ratio}, dropped-chunk "
                             f"control {ctrl} (must exceed 1)")
-                if dt == torch.float32:     # the main path's dtype: timed
+                if timed and dt == torch.float32:   # the main path's
                     reps = 50
                     bound_f = flops / PEAK_F32_FLOPS * 1e3
                     bound_b = nbytes / PEAK_HBM_BYTES * 1e3
@@ -917,19 +937,43 @@ def make_spd(n: int, dev, seed: int) -> torch.Tensor:
     return 0.5 * (a + a.T)
 
 
+MAIN_EPS = 1e-6      # the main path's eps_target
+
+
+def main_config(tb: int, fuse: bool = False):
+    """The main path's configuration, its precision plan still open."""
+    import repro_torch
+    return repro_torch.CholeskyConfig(
+        tb=tb, policy="v3", ladder="gpu", eps_target=MAIN_EPS,
+        use_pallas=True, compute_dtype=torch.float32, fuse_columns=fuse)
+
+
 def main_path(a: torch.Tensor, lref: torch.Tensor, tb: int, dev, seed: int,
               fuse: bool) -> dict:
+    t0 = time.perf_counter()
+    cfg = main_config(tb, fuse).specialize(a)
+    return checked_factor("fused" if fuse else "main", cfg, a, lref, dev,
+                          seed, t0)
+
+
+def schedule_launches(sched) -> dict:
+    """Kernel launches an unfused factor of ``sched`` makes: one per op of
+    each per-op kernel's kind."""
+    from repro_torch.core.schedule import OpKind
+    return {name: sched.count(OpKind[_OP_OF[name]]) if name in _OP_OF else 0
+            for name in KERNEL_META}
+
+
+def checked_factor(tag: str, cfg, a: torch.Tensor, lref: torch.Tensor, dev,
+                   seed: int, t0: float) -> dict:
+    """Plan and compile ``cfg`` (``t0``: when the caller began), factor
+    ``a`` once, and hold the launches, the transfers, ``volume()`` and the
+    accuracy against ``lref`` as the main path does."""
     import repro_torch
     from repro_torch.core.schedule import OpKind
     g = torch.Generator(device=dev).manual_seed(seed + 1)
-    n = a.shape[0]
-    tag = "fused" if fuse else "main"
-    eps_target = 1e-6
-    t0 = time.perf_counter()
-    cfg = repro_torch.CholeskyConfig(
-        tb=tb, policy="v3", ladder="gpu", eps_target=eps_target,
-        use_pallas=True, compute_dtype=torch.float32,
-        fuse_columns=fuse).specialize(a)
+    n, tb, fuse = a.shape[0], cfg.tb, cfg.fuse_columns
+    eps_target = MAIN_EPS
     solver = repro_torch.plan(n, cfg).compile(device=dev)
     sched = solver.schedule
     plan_s = time.perf_counter() - t0
@@ -949,8 +993,7 @@ def main_path(a: torch.Tensor, lref: torch.Tensor, tb: int, dev, seed: int,
     if fuse:      # one launch per column step, no per-op launch
         want = {**dict.fromkeys(launches, 0), "fused_column_step": n // tb}
     else:
-        want = {name: sched.count(OpKind[_OP_OF[name]]) if name in _OP_OF
-                else 0 for name in launches}
+        want = schedule_launches(sched)
     log(f"{tag}: factor {factor_s:.3f}s, {n ** 3 / 3 / factor_s / 1e12:.3f} "
         f"TFLOP/s (n^3/3); launches {launches}; want {want}; device memory "
         f"beyond the input {peak_mib:.0f} MiB at peak")
@@ -1355,8 +1398,7 @@ def geo(n: int, tb: int, dev, seed: int, card: str) -> dict:
     ratio = _row_ratio(got, fc.fused_column_step_ref(*args, ids, **kw),
                        _fused_tol("f32", tb, torch.float64))
     require(ratio <= 1.0, f"geo fused step R=K={r}: row error ratio {ratio}")
-    # a launch of some 6 ms, which CUDA events time as the device does; the
-    # profiler has once read no device time for it after the phases above
+    # a launch of some 6 ms, which CUDA events time as the device does
     step = {"R": r, "K": r, "row_ratio": ratio,
             "ms": time_ms(lambda: fc.fused_column_step(*args, ids, **kw), 3,
                           1),
@@ -1743,7 +1785,8 @@ def trace_phase(n: int, mxp_n: int, tb: int, dev, seed: int,
     reading), the chrome trace's events against the spans, and a
     misaligned timeline the report must refuse.  Config B, phase 7's
     mixed-precision layout on four logical devices: one span per op of
-    every stream, the same transfer counters, the untraced factor."""
+    every stream, the same transfer counters, the untraced factor.
+    Returns the results and config A's (recorder, plan)."""
     import dataclasses
     import tempfile
 
@@ -1854,6 +1897,7 @@ def trace_phase(n: int, mxp_n: int, tb: int, dev, seed: int,
             "makespan_ratio": rep.makespan_ratio,
             "per_kind_ratio": {k: v["ratio"]
                                for k, v in rep.per_kind.items()}}}
+    trace_a = (rec, plan)           # phase 11 refits a model from it
     del solver, a, untraced
 
     # config B: phase 7's mixed-precision layout, traced once
@@ -1897,7 +1941,7 @@ def trace_phase(n: int, mxp_n: int, tb: int, dev, seed: int,
     out["B"] = {"n": mxp_n, "spans": len(rec), "ops": len(order),
                 "traced_s": traced_s, "bitwise_untraced": bitwise,
                 "max_diff": diff, "transfer_stats_equal": same_wires}
-    return out
+    return out, trace_a
 
 
 def pick_host_slots(n: int, tb: int, plan) -> int:
@@ -2451,6 +2495,248 @@ def lm_serving(dev, seed: int) -> dict:
             "peak_gb": peak_gb}
 
 
+# Phase 11, the tuner and the solver service.  The burst: SERVE_BURST
+# single-RHS solves a tenant, coalesced within SERVE_WINDOW_S up to
+# SERVE_MAX_BATCH columns; each served solution is held within
+# SOLVE_REL_TOL (relative, in f64) of the solo solver's stacked solve.
+CHOLESKY_KERNELS = ("mxp_gemm_update", "syrk_update", "trsm", "potrf",
+                    "fused_column_step")
+SERVE_BURST = 64
+SERVE_WINDOW_S = 0.005
+SERVE_MAX_BATCH = 32
+SOLVE_REL_TOL = 1e-10
+
+
+def _over_limits(cfg) -> bool:
+    """Whether ``cfg``'s tile size exceeds a limit of the kernels its route
+    runs: TRSM's and POTRF's edge (use_pallas below f64; f64 tiles take the
+    stock ops), the fused step's."""
+    from repro_torch.kernels import fused_column, potrf, trsm
+    if (cfg.use_pallas and cfg.resolved_compute_dtype != torch.float64
+            and cfg.tb > min(trsm.MAX_N, potrf.MAX_N)):
+        return True
+    return cfg.fuse_columns and (cfg.tb % fused_column.NB
+                                 or cfg.tb > fused_column.MAX_TB)
+
+
+def tuner_service(n: int, tb: int, dev, seed: int, card: str, main: dict,
+                  checks: dict, trace_a) -> dict:
+    """Phase 11.  Calibration on the card (all five Cholesky kernels
+    launched, the card's memory), the search at ``n`` against the measured
+    model for the main path's configuration with ``tb`` and the policy open
+    (no candidate past a kernel's tile limit), the winner's kernels against
+    their plain versions at its tile size and its factor under the main
+    path's checks, a model refitted from phase 8's trace, and two tenants
+    served at once: bitwise their solo factors and logdets, exact launch
+    totals, a coalesced solve burst, and a plan one byte too large for the
+    model's memory refused before anything runs."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch import obs, tune
+    from repro_torch.serve import (AdmissionError, SolverService,
+                                   plan_device_bytes)
+    out = {"card": card}
+
+    # calibration: the executor's own kernels, timed by device time
+    repro_torch.reset_counts()
+    t0 = time.perf_counter()
+    model = tune.calibrate(tb=tb, compute_dtype=torch.float32, device=dev)
+    cal_s = time.perf_counter() - t0
+    launches = repro_torch.launch_counts()
+    total_mem = torch.cuda.mem_get_info(dev)[1]
+    log(f"calibrate [{card}]: tb={tb} f32 in {cal_s:.2f}s; launches "
+        f"{launches}; mem_bytes {model.mem_bytes:.0f} (the card's "
+        f"{total_mem})")
+    require(all(launches[k] > 0 for k in CHOLESKY_KERNELS),
+            f"calibrate: a Cholesky kernel was not launched: {launches}")
+    require(model.mem_bytes == total_mem,
+            f"calibrate: mem_bytes {model.mem_bytes} != {total_mem}")
+    for task, per in sorted(model.kernel_flops.items()):
+        log(f"calibrate [{card}]: {task} TFLOP/s by class " + ", ".join(
+            f"{c} {r / 1e12:.3f}" for c, r in per.items()))
+    gemm_ms = checks["mxp_gemm_update[float32]"]["device_ms"]
+    phase3_rate = 2.0 * tb ** 3 / (gemm_ms / 1e3)
+    preset = repro_torch.HW["h100-pcie"]
+    log(f"calibrate [{card}]: f32 GEMM {model.kernel_flops['gemm']['f32'] / 1e12:.3f} "
+        f"TFLOP/s beside 2 tb^3 / phase 3's device time "
+        f"{phase3_rate / 1e12:.3f}; h2d {model.h2d_bw / 1e9:.2f} GB/s, d2h "
+        f"{model.d2h_bw / 1e9:.2f}, link {model.link_bw / 1e9:.2f}, "
+        f"launch_overhead {model.launch_overhead * 1e6:.2f} us, alloc "
+        f"{model.alloc_overhead * 1e6:.2f} us; the h100-pcie preset's "
+        f"(datasheet): f32 {preset.flops['f32'] / 1e12:.1f} TFLOP/s, h2d "
+        f"{preset.h2d_bw / 1e9:.1f} GB/s, d2h {preset.d2h_bw / 1e9:.1f}, "
+        f"launch {preset.launch_overhead * 1e6:.1f} us")
+    out["calibration"] = {
+        "seconds": cal_s, "launches": launches, "card_mem_bytes": total_mem,
+        "model": tune.model_to_dict(model),
+        "gemm_f32_phase3_rate": phase3_rate}
+
+    # the search: the main path's configuration with tb and policy open
+    a = make_spd(n, dev, seed)
+    base = dataclasses.replace(main_config(0), policy="auto",
+                               eps_target=None)
+    t0 = time.perf_counter()
+    result = tune.tune(n, base, hw=model, sample=a, eps_target=MAIN_EPS)
+    search_s = time.perf_counter() - t0
+    table = result.table()
+    unlimited = tune.feasible_tbs(n, model)
+    offered = sorted({c.config.tb for c in result.candidates})
+    log(f"tune [{card}]: n={n} in {search_s:.2f}s, {len(table)} "
+        f"candidates at tb {offered} (without the kernels' limits: "
+        f"{unlimited}); model readings, simulated makespans:")
+    for row in table[:5]:
+        log(f"tune:   tb={row['tb']} {row['policy']} slots="
+            f"{row['cache_slots']} makespan {row['makespan_s']:.4f}s "
+            f"loads {row['loads_bytes']} stores {row['stores_bytes']}")
+    over = [c.config.tb for c in result.candidates if _over_limits(c.config)]
+    require(not over, f"tune: candidates past the kernels' limits: {over}")
+    cfg = result.config
+    require(cfg.plan is not None and cfg.use_pallas
+            and cfg.compute_dtype == torch.float32,
+            f"tune: the winner lost the path's route or plan: {cfg}")
+    out["tune"] = {"seconds": search_s, "candidates": len(table),
+                   "offered_tbs": offered, "unlimited_tbs": unlimited,
+                   "top": table[:5]}
+
+    # the winner: its kernels at its tile size, then its factor
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    out["tuned_kernel_checks"] = kernel_checks(
+        cfg.tb, dev, g, dtypes=(torch.float32,), timed=False)
+    lref = torch.linalg.cholesky(a)
+    tuned = checked_factor("tuned", cfg, a, lref, dev, seed,
+                           time.perf_counter())
+    log(f"tuned [{card}]: tb={cfg.tb} {cfg.policy} slots={cfg.cache_slots}: "
+        f"factor {tuned['factor_s']:.3f}s beside phase 4's "
+        f"{main['factor_s']:.3f}s at tb={tb} v3; predicted "
+        f"{result.best.makespan:.4f}s (model reading)")
+    out["tuned"] = tuned
+    del a, lref
+
+    # a model refitted from phase 8's trace; drift of the same trace
+    # against three models (readings, not requirements)
+    rec, plan_a = trace_a
+    refined = tune.calibrate(refine_from=rec, device=dev)
+    drift = {}
+    for name, hw in (("refined", refined), ("measured", model),
+                     ("h100-pcie", preset)):
+        sim = plan_a.simulate(hw, record_timeline=True)
+        drift[name] = obs.drift_report(rec, sim).makespan_ratio
+    log(f"refine [{card}]: drift of phase 8's trace, makespan ratio against "
+        + ", ".join(f"{k} x{v:.3f}" for k, v in drift.items()))
+    out["refine"] = {"drift_makespan_ratio": drift,
+                     "model": tune.model_to_dict(refined)}
+
+    # two tenants, each with its own seeded matrix, factored solo first
+    mats = [make_spd(n, dev, seed + 11 + i) for i in range(2)]
+    cfgs = [main_config(tb).specialize(m) for m in mats]
+    rng = np.random.default_rng(seed + 11)
+    rhs = [[rng.standard_normal(n) for _ in range(SERVE_BURST)]
+           for _ in mats]
+    solo, solo_s, want = [], [], dict.fromkeys(KERNEL_META, 0)
+    for m, c, bs in zip(mats, cfgs, rhs):
+        p = repro_torch.plan(n, c)
+        s = p.compile(device=dev)
+        t0 = time.perf_counter()
+        s.factor(m, materialize=False)
+        solo_s.append(time.perf_counter() - t0)
+        solo.append((s.tiles.clone(), s.logdet(),
+                     s.solve(np.stack(bs, axis=1))))
+        for k, v in schedule_launches(p.schedule).items():
+            want[k] += v
+        del s
+    shared = repro_torch.plan(n, cfgs[0]) is repro_torch.plan(n, cfgs[1])
+    with SolverService(workers=2, hw=model, device=dev,
+                       batch_window=SERVE_WINDOW_S,
+                       max_batch=SERVE_MAX_BATCH) as svc:
+        sess = [svc.session(f"tenant{i}", n, c) for i, c in enumerate(cfgs)]
+        repro_torch.reset_counts()
+        t0 = time.perf_counter()
+        futs = [s.factor_async(m) for s, m in zip(sess, mats)]
+        for f in futs:
+            f.result()
+        served_s = time.perf_counter() - t0
+        launches = repro_torch.launch_counts()
+        reserved = svc.admission.reserved_bytes()
+        need = [plan_device_bytes(s._plan) for s in sess]
+        bitwise = [torch.equal(s._solver.tiles, t) and s.logdet() == ld
+                   for s, (t, ld, _) in zip(sess, solo)]
+        log(f"serve [{card}]: two tenants factored at once in "
+            f"{served_s:.3f}s beside solo {solo_s[0]:.3f}s + "
+            f"{solo_s[1]:.3f}s, x{served_s / sum(solo_s):.3f} their sum "
+            f"(one card runs one factor at a time; one plan shared: "
+            f"{shared}); launches "
+            f"{launches}, want {want}; bitwise solo factor and logdet "
+            f"{bitwise}; admitted {reserved} B reserved of the card's "
+            f"{model.mem_bytes:.0f}")
+        require(launches == want, f"serve: launches {launches} != {want}")
+        require(all(bitwise), "serve: a served factor or logdet differs "
+                "from its solo one")
+        require(reserved == sum(need), f"serve: reserved {reserved} B, the "
+                f"two plans need {need}")
+        # one work item's worth of solves outside the service, for scale
+        t0 = time.perf_counter()
+        sess[0]._solver.solve(np.stack(rhs[0][:SERVE_MAX_BATCH], axis=1))
+        direct_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        burst = [[s.solve_async(b) for b in bs] for s, bs in zip(sess, rhs)]
+        xs = [np.stack([f.result() for f in fs], axis=1) for fs in burst]
+        burst_s = time.perf_counter() - t0
+        snap = svc.metrics.snapshot()
+        lat = [r.latency for r in svc.metrics._records
+               if r.ok and r.kind == "solve"]
+        items = sorted({(r.t_start, r.t_end, r.batch_k)
+                        for r in svc.metrics._records if r.kind == "solve"})
+    rel = max(float(np.max(np.linalg.norm(x - want_x, axis=0)
+                           / np.linalg.norm(want_x, axis=0)))
+              for x, (_, _, want_x) in zip(xs, solo))
+    occ = snap["batch"]["max_occupancy"]
+    p50, p99 = np.percentile(lat, 50), np.percentile(lat, 99)
+    log(f"serve [{card}]: burst of {SERVE_BURST} single-RHS solves a tenant "
+        f"in {burst_s:.3f}s: {len(items)} solve work items, max "
+        f"occupancy {occ}, mean {snap['batch']['mean_occupancy']:.2f}; "
+        f"solves_per_s {snap['solves_per_s']:.1f} (the service's window); "
+        f"solve latency p50 {p50 * 1e3:.2f} ms p99 {p99 * 1e3:.2f} ms; max "
+        f"relative distance from the solo solves {rel:.3e} (bound "
+        f"{SOLVE_REL_TOL:.0e})")
+    log(f"serve [{card}]: one {SERVE_MAX_BATCH}-column solve outside the "
+        f"service {direct_s:.3f}s; the burst's work items (columns, "
+        f"seconds from pick-up to end): " + ", ".join(
+            f"{k}:{t1 - t0:.3f}" for t0, t1, k in items))
+    require(occ >= 2, f"serve: burst max occupancy {occ}")
+    require(rel < SOLVE_REL_TOL, f"serve: solves {rel} from the solo ones")
+
+    # the same plan under the model with one byte too few is refused
+    tight = dataclasses.replace(model, mem_bytes=need[0] - 1)
+    with SolverService(workers=1, hw=tight, device=dev) as svc2:
+        s = svc2.session("tight", n, cfgs[0])
+        repro_torch.reset_counts()
+        fut = s.factor_async(mats[0])
+        try:
+            fut.result()
+            refused = None
+        except AdmissionError as exc:
+            refused = str(exc)
+        ran = repro_torch.launch_counts()
+        snap2 = svc2.metrics.snapshot()
+    log(f"serve: mem_bytes one byte below the plan's {need[0]} B: refused "
+        f"({refused}); launches {ran}; rejected {snap2['rejected']}")
+    require(refused is not None and not any(ran.values())
+            and snap2["rejected"] == 1 and snap2["completed"] == 0,
+            "serve: the plan one byte too large was not refused before "
+            "anything ran")
+    out["serve"] = {
+        "served_s": served_s, "solo_s": solo_s, "one_plan": shared,
+        "launches": launches, "schedule_launches": want,
+        "reserved_bytes": reserved, "burst_s": burst_s,
+        "direct_solve_s": direct_s,
+        "items": [[t1 - t0, k] for t0, t1, k in items],
+        "max_occupancy": occ, "solves_per_s": snap["solves_per_s"],
+        "solve_latency_p50_s": p50, "solve_latency_p99_s": p99,
+        "max_rel_solve": rel, "snapshot": snap, "refused": refused}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -2498,7 +2784,8 @@ def main() -> int:
     md = multidevice(args.n, MD_MXP_N, args.tb, dev, args.seed, card,
                      {"main": main, "fused": fused})
     torch.cuda.empty_cache()                    # 8. measured trace
-    traced = trace_phase(args.n, MD_MXP_N, args.tb, dev, args.seed, card)
+    traced, trace_a = trace_phase(args.n, MD_MXP_N, args.tb, dev, args.seed,
+                                  card)
     torch.cuda.empty_cache()                    # 9. disk tier
     disk = disk_tier(args.spill_n, args.tb, dev, args.seed, card)
     torch.cuda.empty_cache()                    # 10. LM serving
@@ -2506,6 +2793,9 @@ def main() -> int:
         f"{torch.cuda.memory_allocated(dev) / 2 ** 20:.0f} MiB")
     checks.update(flash_checks(dev, g))
     lm = lm_serving(dev, args.seed)
+    torch.cuda.empty_cache()                    # 11. tuner and service
+    ts = tuner_service(args.n, args.tb, dev, args.seed, card, main, checks,
+                       trace_a)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -2530,7 +2820,10 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "multidevice_launches": md_run["launches"][name],
             "disk_tier_launches": disk["fused" if name == "fused_column_step"
-                                       else "unfused"]["launches"][name]})
+                                       else "unfused"]["launches"][name],
+            "calibration_launches": ts["calibration"]["launches"][name],
+            "tuned_launches": ts["tuned"]["launches"][name],
+            "served_launches": ts["serve"]["launches"][name]})
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
                     "split", "device_ms", "library_device_ms", "geometry",
                     "grid", "geo_f64_launches", "geo_f64_mid_ms"):
@@ -2542,9 +2835,9 @@ def main() -> int:
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
          "fused": fused, "mxp": mxp, "geo": geo_res, "multidevice": md,
          "trace": traced, "disk_tier": disk, "lm": lm,
-         "kernels": kernels}, indent=1))
+         "tuner_service": ts, "kernels": kernels}, indent=1))
     log(card)
-    print(json.dumps({"kernels": kernels}))     # 11. kernels line
+    print(json.dumps({"kernels": kernels}))     # 12. kernels line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,8 +31,15 @@ pinned host memory; :class:`RestartableFactorization` resumes a killed
 disk-tier replay bit-identically from :mod:`repro_torch.checkpoint`.
 Observability: ``factor(a, trace=TraceRecorder())`` records one fenced
 span per op on every executor, and :mod:`repro_torch.obs` exports it and
-aligns it against the simulator (``drift_report``).  See ROADMAP.md for
-what follows.
+aligns it against the simulator (``drift_report``).
+
+The autotuner: :mod:`repro_torch.tune` calibrates a measured hardware
+model on the card and searches ``tb``, the policy, the slot budget and the
+precision plan by exact simulation; ``plan(n, CholeskyConfig(tb=0,
+policy="auto"))`` resolves through it.  The solver service:
+:mod:`repro_torch.serve` (:class:`SolverService`) puts tenants' sessions,
+multi-RHS batching and device-memory admission in front of the planner.
+See ROADMAP.md for what follows.
 """
 from repro_torch.convert import config_from_reference, params_from_reference
 from repro_torch.core.analytics import (HW, HardwareModel, ascii_trace,
@@ -60,8 +67,9 @@ from repro_torch.core.schedule import (MultiDeviceSchedule, Op, OpKind,
 from repro_torch.core.taskgraph import build_task_dag, verify_dispatch
 from repro_torch.core.tiling import TileLayout, from_tiles, random_spd, to_tiles
 from repro_torch.kernels.ops import call_counts, launch_counts, reset_counts
-from repro_torch import obs
+from repro_torch import obs, serve, tune
 from repro_torch.obs import NullRecorder, TraceRecorder, drift_report
+from repro_torch.serve import SolverService
 
 __version__ = "0.1.0"
 
@@ -76,6 +84,7 @@ __all__ = [
     "host_residency_at", "CheckpointManager", "RestartableFactorization",
     "TileJournal",
     "obs", "TraceRecorder", "NullRecorder", "drift_report",
+    "tune", "serve", "SolverService",
     "LADDERS", "PrecisionPlan", "assign_precision", "uniform_plan",
     "MultiDeviceSchedule", "Op", "OpKind", "Schedule",
     "build_multidevice_schedule", "build_schedule",

@@ -37,8 +37,11 @@ Tracing: ``factor(a, trace=rec)`` with an active
 ``compile(trace=rec)``) runs the executor's measured path, one fenced span
 per schedule op (:mod:`repro_torch.obs`).
 
-The option whose slice is not ported yet, the autotuner, raises
-``NotImplementedError`` naming its ROADMAP item.
+Open dimensions: ``tb=0`` and/or ``policy="auto"`` leave those axes to
+the autotuner (:mod:`repro_torch.tune`): ``plan()`` resolves them through
+:func:`repro_torch.tune.resolve_config`, an exact simulation against the
+config's ``hw`` preset or the process default model, and caches the plan
+under the auto config too.
 """
 from __future__ import annotations
 
@@ -68,11 +71,6 @@ def _obs_registry():
     planner stays importable without the obs package."""
     from ..obs.metrics import REGISTRY
     return REGISTRY
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,11 +175,7 @@ class CholeskyConfig:
             raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES} "
                              f"(or None for float64), got "
                              f"{self.compute_dtype!r}")
-        # the slices that are not ported yet
-        if self.tb == 0 or self.policy == "auto":
-            raise _not_ported("the autotuner (tb=0, policy='auto')",
-                              "queue 1, item 9")
-        if self.cache_slots > 0:
+        if self.cache_slots > 0 and self.policy != "auto":
             floor = min_cache_slots(self.policy, self.block,
                                     self.lookahead or 0)
             if self.cache_slots < floor:
@@ -220,6 +214,13 @@ class CholeskyConfig:
                     f"backend={self.backend!r} (resolved "
                     f"{self.resolved_backend()!r})")
 
+    @property
+    def needs_tuning(self) -> bool:
+        """True when an open dimension (``tb=0`` / ``policy="auto"``)
+        must be resolved by :func:`repro_torch.tune.resolve_config` before
+        a schedule can be built."""
+        return self.tb == 0 or self.policy == "auto"
+
     def resolved_backend(self) -> str:
         """Backend ``'auto'`` runs on: ``'torch'``.  The NumPy replays run
         only when ``backend='numpy'`` asks for them."""
@@ -237,6 +238,12 @@ class CholeskyConfig:
         returned as-is."""
         if self.eps_target is None:
             return self
+        if self.tb == 0:
+            raise ValueError(
+                "specialize() tiles the matrix with tb, which is still "
+                "open (tb=0): resolve the config first — e.g. "
+                "repro_torch.tune.tune(n, config, sample=a, eps_target=...) "
+                "searches tb and the precision plan together")
         from .cholesky import plan_for_matrix
         if not isinstance(a, torch.Tensor):
             a = np.asarray(a, dtype=np.float64)
@@ -348,6 +355,11 @@ class OOCSolver:
     def device(self) -> torch.device:
         """The device of the solves: the first logical device."""
         return self._executor.device
+
+    @property
+    def devices(self) -> tuple:
+        """Every logical device the factor runs on (one without ``ndev``)."""
+        return self._executor.devices
 
     @property
     def schedule(self) -> MultiDeviceSchedule:
@@ -661,12 +673,24 @@ class CholeskyPlan:
     executor_builds: int = 0
     _compile_lock: Any = dataclasses.field(default_factory=threading.Lock,
                                            repr=False, compare=False)
+    _device_slots: Optional[int] = dataclasses.field(default=None,
+                                                     repr=False, compare=False)
 
     def single_schedule(self):
         """The flat single-device Schedule backing the ndev=1 degenerate."""
         if self._single is None:
             self._single = self.schedule.to_single()
         return self._single
+
+    def device_slots(self) -> int:
+        """Worst per-device slot count the schedule pins (cache table +
+        panel region), read off the streams once: a read walks every op
+        (93,462 at n = 32768, tb 512), and the serve tier's admission asks
+        at every submit and dispatch."""
+        if self._device_slots is None:
+            self._device_slots = max(self.schedule.stream_nslots(d)
+                                     for d in range(self.schedule.ndev))
+        return self._device_slots
 
     def compile(self, device=None, trace=None) -> OOCSolver:
         """A fresh solver over this plan's executor on ``device``
@@ -716,6 +740,11 @@ _PLAN_CACHE_MAX = 32
 _PLAN_CACHE_LOCK = threading.RLock()
 _PLAN_CACHE_HITS = 0
 _PLAN_CACHE_MISSES = 0
+_SCHEDULE_BUILDS = 0     # module-wide build counter (amortization tests)
+
+
+def schedule_build_count() -> int:
+    return _SCHEDULE_BUILDS
 
 
 def plan_cache_stats() -> dict:
@@ -736,10 +765,12 @@ def plan(n: int, config: CholeskyConfig | None = None,
 
     ``plan(n, config)`` or ``plan(n, tb=..., ...)``.  Plans are cached by
     ``(n, config)`` value: equal configs return the *same* plan object.
+    Configs with open dimensions (``tb=0``, ``policy="auto"``) are resolved
+    through the autotuner first (:func:`repro_torch.tune.resolve_config`).
     ``eps_target`` configs must be frozen with
     :meth:`CholeskyConfig.specialize` first.
     """
-    global _PLAN_CACHE_HITS, _PLAN_CACHE_MISSES
+    global _SCHEDULE_BUILDS, _PLAN_CACHE_HITS, _PLAN_CACHE_MISSES
     if config is None:
         config = CholeskyConfig(**overrides)
     elif overrides:
@@ -749,19 +780,39 @@ def plan(n: int, config: CholeskyConfig | None = None,
             "eps_target makes the precision plan matrix-dependent, so it "
             "cannot be planned ahead of the data: freeze it with "
             "config.specialize(a) (or pass plan=plan_for_matrix(...))")
-    if config.grid == (config.ndev, 1):
-        # the reference's canonical forms: both build the default schedule
-        config = dataclasses.replace(config, grid=None)
-    if config.lookahead == 0:
-        config = dataclasses.replace(config, lookahead=None)
+    # the lock spans lookup *and* build: concurrent misses on one key
+    # collapse to a single schedule construction
     with _PLAN_CACHE_LOCK:
+        auto_key = None
+        if config.needs_tuning:
+            # open dimensions: resolve through the autotuner, memoized in
+            # the tuning db; the plan is cached under the auto key too,
+            # which carries the resolving model's identity, so installing
+            # another default hardware model re-resolves
+            from ..tune import resolution_token, resolve_config
+            auto_key = (n, config, resolution_token(config))
+            cached = _PLAN_CACHE.get(auto_key)
+            if cached is not None:
+                _PLAN_CACHE.move_to_end(auto_key)
+                _PLAN_CACHE_HITS += 1
+                return cached
+            config = resolve_config(n, config)
+        if config.grid == (config.ndev, 1):
+            # the reference's canonical forms: both build the default
+            # schedule
+            config = dataclasses.replace(config, grid=None)
+        if config.lookahead == 0:
+            config = dataclasses.replace(config, lookahead=None)
         layout = TileLayout(n, config.tb)   # validates n % tb == 0
         key = (n, config)
         cached = _PLAN_CACHE.get(key)
         if cached is not None:
             _PLAN_CACHE.move_to_end(key)
             _PLAN_CACHE_HITS += 1
+            if auto_key is not None:
+                _PLAN_CACHE[auto_key] = cached
             return cached
+        _SCHEDULE_BUILDS += 1
         _PLAN_CACHE_MISSES += 1
         pplan = config.plan or uniform_plan(layout.nt, "f64", config.ladder)
         if config.ndev > 1:
@@ -779,6 +830,8 @@ def plan(n: int, config: CholeskyConfig | None = None,
             msched = MultiDeviceSchedule.from_single(single)
         p = CholeskyPlan(n=n, config=config, schedule=msched, _single=single)
         _PLAN_CACHE[key] = p
+        if auto_key is not None:
+            _PLAN_CACHE[auto_key] = p
         while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
             _PLAN_CACHE.popitem(last=False)
         return p

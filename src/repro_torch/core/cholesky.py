@@ -1301,7 +1301,8 @@ def make_multidevice_torch_executor(msched: MultiDeviceSchedule,
 
 def _tile_stats(a: torch.Tensor, tb: int):
     """Per-tile Frobenius norms and absolute maxima of an [n, n] tensor,
-    on its own device, one tile row at a time."""
+    on its own device, one tile row at a time, and ||A||_F from the lower
+    tiles, summed as precision.tile_norms does."""
     nt = a.shape[0] // tb
     norms = torch.empty((nt, nt), dtype=torch.float64)
     amax = torch.empty((nt, nt), dtype=torch.float64)
@@ -1309,7 +1310,12 @@ def _tile_stats(a: torch.Tensor, tb: int):
         rows = a[i * tb:(i + 1) * tb].to(torch.float64).reshape(tb, nt, tb)
         norms[i] = rows.square().sum(dim=(0, 2)).sqrt().cpu()
         amax[i] = rows.abs().amax(dim=(0, 2)).cpu()
-    return norms.numpy(), amax.numpy()
+    norms = norms.numpy()
+    total = 0.0
+    for j in range(nt):
+        for i in range(j, nt):
+            total += (1.0 if i == j else 2.0) * norms[i, j] ** 2
+    return norms, amax.numpy(), float(np.sqrt(total))
 
 
 def plan_for_matrix(a, eps_target: float | None, ladder: str = "tpu",
@@ -1327,13 +1333,7 @@ def plan_for_matrix(a, eps_target: float | None, ladder: str = "tpu",
         nt = a.shape[0] // tb
         if eps_target is None:
             return uniform_plan(nt, "f64", ladder)
-        norms, amax = _tile_stats(a, tb)
-        # ||A||_F from the lower tiles, summed as precision.tile_norms does
-        total = 0.0
-        for j in range(nt):
-            for i in range(j, nt):
-                total += (1.0 if i == j else 2.0) * norms[i, j] ** 2
-        total = float(np.sqrt(total))
+        norms, amax, total = _tile_stats(a, tb)
     else:
         if eps_target is None:
             return uniform_plan(a.shape[0], "f64", ladder)

@@ -33,6 +33,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _LIBS: dict = {}
 _FUNCS: dict = {}
 _LOCK = threading.Lock()
+#: guards every kernel's launch count and ops' call counts: service
+#: workers launch from several threads, and ``+= 1`` is not atomic
+COUNT_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:

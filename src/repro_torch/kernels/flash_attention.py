@@ -125,8 +125,9 @@ def _launch(q, k, v, *, bh: int, s: int, t: int, nh: int, nkv: int,
                      int(causal), _build.DTYPE_CODES[q.dtype],
                      1.0 / math.sqrt(hd), stream)
     _build.check(err, f"flash_attention ({kind})")
-    launches += 1
-    variant_launches[kind] += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        variant_launches[kind] += 1
     return out
 
 

@@ -183,5 +183,6 @@ def fused_column_step(c_stack, hist, bhist, l_kk, cls_ids, *, ladder,
              len(solve_items(r_tiles, tb, with_diag)),
              torch.cuda.current_stream().cuda_stream)
     _build.check(err, "fused_column_step")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

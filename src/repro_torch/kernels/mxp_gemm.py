@@ -126,5 +126,6 @@ def _launch(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, split: int,
              _build.DTYPE_CODES[c.dtype], split, chunk,
              torch.cuda.current_stream().cuda_stream)
     _build.check(err, "mxp_gemm_update")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

@@ -13,11 +13,14 @@ and its ``fused_column`` count for ``fused_column_step``);
 :func:`launch_counts` counts CUDA kernel launches only, one per launch, kept
 by each kernel's wrapper, for the tile kernels and the flash attention
 kernel of the LM path (``models.attention`` calls its wrapper directly).
+Both are exact under threads: every count moves under
+``_build.COUNT_LOCK``.
 """
 from __future__ import annotations
 
 import torch
 
+from . import _build
 from . import flash_attention as _flash
 from . import fused_column as _fused
 from . import mxp_gemm as _gemm
@@ -44,27 +47,36 @@ _CALLS = {name: 0 for name in TILE_OPS}
 
 def launch_counts() -> dict:
     """CUDA kernel launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    with _build.COUNT_LOCK:
+        return {name: mod.launches for name, mod in KERNELS.items()}
 
 
 def call_counts() -> dict:
     """Tile ops dispatched per kernel since the last reset (any device)."""
-    return dict(_CALLS)
+    with _build.COUNT_LOCK:
+        return dict(_CALLS)
 
 
 def flash_variant_counts() -> dict:
     """Flash attention launches per kernel (``tensor_core``, ``ffma``)
     since the last reset; they sum to ``launch_counts()["flash_attention"]``."""
-    return dict(_flash.variant_launches)
+    with _build.COUNT_LOCK:
+        return dict(_flash.variant_launches)
 
 
 def reset_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
-    for name in _flash.variant_launches:
-        _flash.variant_launches[name] = 0
-    for name in _CALLS:
-        _CALLS[name] = 0
+    with _build.COUNT_LOCK:
+        for mod in KERNELS.values():
+            mod.launches = 0
+        for name in _flash.variant_launches:
+            _flash.variant_launches[name] = 0
+        for name in _CALLS:
+            _CALLS[name] = 0
+
+
+def _count(name: str) -> None:
+    with _build.COUNT_LOCK:
+        _CALLS[name] += 1
 
 
 def _is_f64(*xs) -> bool:
@@ -72,28 +84,28 @@ def _is_f64(*xs) -> bool:
 
 
 def potrf(a):
-    _CALLS["potrf"] += 1
+    _count("potrf")
     if _is_f64(a):
         return STOCK["potrf"](a)
     return _potrf.potrf(a)
 
 
 def trsm(l, c):
-    _CALLS["trsm"] += 1
+    _count("trsm")
     if _is_f64(l, c):
         return STOCK["trsm"](l, c)
     return _trsm.trsm(l, c)
 
 
 def syrk_update(c, a):
-    _CALLS["syrk_update"] += 1
+    _count("syrk_update")
     if _is_f64(c, a):
         return STOCK["syrk"](c, a)
     return _syrk.syrk_update(c, a)
 
 
 def gemm_update(c, a, b):
-    _CALLS["mxp_gemm_update"] += 1
+    _count("mxp_gemm_update")
     if _is_f64(c, a, b):
         return STOCK["gemm"](c, a, b)
     return _gemm.mxp_gemm_update(c, a, b)
@@ -101,6 +113,6 @@ def gemm_update(c, a, b):
 
 def fused_column_step(c_stack, hist, bhist, l_kk, cls_ids, *, ladder,
                       with_diag):
-    _CALLS["fused_column_step"] += 1
+    _count("fused_column_step")
     return _fused.fused_column_step(c_stack, hist, bhist, l_kk, cls_ids,
                                     ladder=ladder, with_diag=with_diag)

@@ -92,5 +92,6 @@ def potrf(a: torch.Tensor) -> torch.Tensor:
              _build.DTYPE_CODES[a.dtype], blocks_needed(n), smem_bytes(),
              torch.cuda.current_stream().cuda_stream)
     _build.check(err, "potrf")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

@@ -88,5 +88,6 @@ def syrk_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
              blocks(m), split, chunk,
              torch.cuda.current_stream().cuda_stream)
     _build.check(err, "syrk_update")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

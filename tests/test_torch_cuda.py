@@ -1147,3 +1147,101 @@ def test_cuda_spill_executor_bitwise_incore(cuda, fuse, tmp_path):
             assert launches["fused_column_step"] > 0
         else:
             assert launches["potrf"] == n // tb
+
+
+# --------------------------------------------------------------------------
+# the tuner and the solver service on the card
+# --------------------------------------------------------------------------
+
+_CHOLESKY_KERNELS = ("mxp_gemm_update", "syrk_update", "trsm", "potrf",
+                     "fused_column_step")
+
+
+@pytest.mark.cuda
+def test_cuda_calibrate_launches_every_kernel(cuda):
+    """Calibration in f32 on the card times the hand-written kernels: each
+    of the five Cholesky kernels launches, every rate is positive and
+    finite, and ``mem_bytes`` is the card's total memory."""
+    from repro_torch import tune
+    ops.reset_counts()
+    model = tune.calibrate(tb=128, repeats=2, transfer_sizes_mb=(1, 8),
+                           compute_dtype=torch.float32, device=cuda)
+    launches = ops.launch_counts()
+    assert all(launches[k] > 0 for k in _CHOLESKY_KERNELS), launches
+    assert model.mem_bytes == torch.cuda.mem_get_info(cuda)[1]
+    rates = [r for per in model.kernel_flops.values() for r in per.values()]
+    assert set(model.kernel_flops) == {"gemm", "syrk", "trsm", "potrf",
+                                       "fused_column"}
+    assert all(np.isfinite(r) and r > 0 for r in rates)
+    assert model.h2d_bw > 0 and model.d2h_bw > 0
+    assert model.launch_overhead > 0
+    assert model.fingerprint == tune.hardware_fingerprint(cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_tuned_plan_within_kernel_limits(cuda):
+    """At n = 32768 the search offers the kernel route no tile past
+    TRSM's, POTRF's or the fused step's limit; a tuned plan at a small n
+    factors on the card with the schedule's launches."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch import tune
+    from repro_torch.core.schedule import OpKind
+    from repro_torch.kernels import fused_column, potrf, trsm
+    hw = repro_torch.HW["h100-pcie"]
+    base = repro_torch.CholeskyConfig(tb=0, policy="auto", use_pallas=True,
+                                      compute_dtype=torch.float32)
+    for cfg, limit in ((base, min(trsm.MAX_N, potrf.MAX_N)),
+                       (dataclasses.replace(base, fuse_columns=True),
+                        fused_column.MAX_TB)):
+        res = tune.search(32768, hw, cfg)
+        assert all(c.config.tb <= limit for c in res.candidates)
+    n = 2048
+    a = _spd(n).astype(np.float64)
+    res = tune.tune(n, dataclasses.replace(base, ladder="gpu"), hw=hw,
+                    sample=a, eps_target=1e-6, use_db=False)
+    solver = repro_torch.plan(n, res.config).compile(device=cuda)
+    ops.reset_counts()
+    l = solver.factor(a)
+    launches = ops.launch_counts()
+    sched = solver.schedule
+    assert launches["potrf"] == sched.count(OpKind.POTRF)
+    assert launches["mxp_gemm_update"] == sched.count(OpKind.GEMM)
+    assert np.abs(l - np.linalg.cholesky(a)).max() < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_serve_two_tenants_bitwise(cuda):
+    """Two tenants served at once on the card: each factor and logdet
+    bitwise its solo one, launches exactly twice the schedule's, solves
+    within 1e-10 of the solo solver's."""
+    import repro_torch
+    from repro_torch.core.schedule import OpKind
+    from repro_torch.serve import SolverService
+    n, tb = 1024, 256
+    cfg = repro_torch.CholeskyConfig(tb=tb, use_pallas=True,
+                                     compute_dtype=torch.float32)
+    mats = [_spd(n, seed).astype(np.float64) for seed in (3, 4)]
+    b = np.random.default_rng(0).standard_normal((n, 3))
+    solo = []
+    for a in mats:
+        s = repro_torch.plan(n, cfg).compile(device=cuda)
+        s.factor(a, materialize=False)
+        solo.append((s.tiles.clone(), s.logdet(), s.solve(b)))
+    sched = repro_torch.plan(n, cfg).single_schedule()
+    with SolverService(workers=2, device=cuda, batch_window=0.0) as svc:
+        sess = [svc.session(f"t{i}", n, cfg) for i in range(2)]
+        ops.reset_counts()
+        for f in [s.factor_async(a) for s, a in zip(sess, mats)]:
+            f.result(timeout=120)
+        launches = ops.launch_counts()
+        for s, (tiles, ld, x) in zip(sess, solo):
+            assert torch.equal(s._solver.tiles, tiles)
+            assert s.logdet() == ld
+            np.testing.assert_allclose(s.solve(b), x, rtol=1e-10, atol=0)
+    for kind, name in ((OpKind.GEMM, "mxp_gemm_update"),
+                       (OpKind.SYRK, "syrk_update"), (OpKind.TRSM, "trsm"),
+                       (OpKind.POTRF, "potrf")):
+        assert launches[name] == 2 * sched.count(kind)
+    assert launches["fused_column_step"] == 0

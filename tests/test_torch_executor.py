@@ -190,7 +190,7 @@ def test_compile_without_cuda_raises(monkeypatch):
     assert p.compile(device="cpu").device.type == "cpu"
 
 
-_TUNER = (NotImplementedError, "ROADMAP")
+_TUNER = "tuned"
 _MULTI_SPILL = (ValueError, "backend='numpy'")
 
 
@@ -201,25 +201,35 @@ _MULTI_SPILL = (ValueError, "backend='numpy'")
     (dict(ndev=2, host_slots=4), _MULTI_SPILL),
     (dict(host_slots=4), None),
     (dict(fuse_columns=True, ndev=2, host_slots=4), _MULTI_SPILL),
-    # the tuner is not ported, nor is the tb=0 search the presets drive
+    # the tuner is ported: open dimensions resolve as the reference's do,
+    # also the tb=0 search a config's hw preset drives
     (dict(tb=0), _TUNER), (dict(policy="auto"), _TUNER),
     (dict(backend="numpy", host_slots=4), None),
     (dict(hw="h100-pcie", tb=0), _TUNER),
 ], ids=["ndev", "host_slots", "fuse_columns", "tb", "policy", "backend",
         "hw"])
 def test_unported_options_raise(kw, raises):
-    """The options of slices not ported yet raise their ROADMAP item; the
-    disk tier's cases, ported, plan and factor (one device) or name the
-    backend they need (several)."""
+    """Options of the slices ported since this test was written: the disk
+    tier's cases plan and factor (one device) or name the backend they need
+    (several); the tuner's resolve to the reference's config, plan and
+    factor."""
+    from repro import tune as ref_tune
+    from repro_torch import tune
     kw = {"tb": 32, **kw}
-    if raises is not None:
+    if isinstance(raises, tuple):
         with pytest.raises(raises[0], match=raises[1]):
             repro_torch.CholeskyConfig(**kw)
         return
     cfg = repro_torch.CholeskyConfig(**kw)
     a = random_spd(128, seed=2)
-    solver = repro_torch.plan(128, cfg).compile(device="cpu")
+    p = repro_torch.plan(128, cfg)
+    solver = p.compile(device="cpu")
     assert np.abs(solver.factor(a) - np.linalg.cholesky(a)).max() < 1e-10
+    if raises == _TUNER:
+        assert cfg.needs_tuning and not p.config.needs_tuning
+        want = repro.plan(128, repro.CholeskyConfig(**kw)).config
+        assert tune.config_to_dict(p.config) == ref_tune.config_to_dict(want)
+        return
     t = solver.stats["transfers"]
     assert t["fetched_bytes"] == t["scheduled_fetch_bytes"] > 0
 
@@ -247,7 +257,7 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.fused_column, repro_torch.core.analytics, "
             "repro_torch.core.cholesky, repro_torch.geo, "
             "repro_torch.geo.matern, repro_torch.geo.likelihood, "
-            "repro_torch.geo.kl\n"
+            "repro_torch.geo.kl, repro_torch.tune, repro_torch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "print(bad)\n")
