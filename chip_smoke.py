@@ -136,9 +136,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    solve; and the plan under the model with one byte less than its
    ``plan_device_bytes`` refused with ``AdmissionError``, no kernel
    launched;
-12. the kernels line (JSON; each kernel also with its launches in config
-   A, in the disk tier, in calibration, in the tuned factor and in the
-   served pair) and the last line, ``{"ok": true, "device": {...}}``.
+12. the baseline, the shim and the examples: ``core.distributed.
+   distributed_cholesky`` (f64, no hand-written kernel) on phase 4's matrix
+   over phase 7's four logical devices, within 1e-10 of max|A| of the f64
+   factor on the card, twice bitwise under phase 7's watchdog, its bytes
+   sent equal to ``panel_broadcast_bytes`` and to the static schedule's
+   ``bcast_bytes()``, its seconds and peak device memory logged beside
+   config A's, and a broadcast of zeros swapped in that must fail the
+   1e-10 check; the deprecated ``ooc_cholesky`` on the main path's
+   configuration at ``--mxp-n``: its ``DeprecationWarning``, bitwise the
+   ``plan(...).compile()`` factor with the schedule's launches, and the
+   ``RuntimeError`` of ``ndev=2`` on ``"cuda"`` with one card (logged as
+   skipped on two or more); then every ``examples/torch_*.py`` at its
+   defaults on the card, all at once, each of which must exit 0 (their
+   output in ``chiprun_out/examples/``);
+13. the kernels line (JSON; each kernel also with its launches in config
+   A, in the disk tier, in calibration, in the tuned factor, in the
+   served pair and through the shim) and the last line,
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
 ``chiprun_out/chip_smoke.json`` as well.  ``--n``, ``--mxp-n``, ``--geo-n``,
@@ -2737,6 +2752,220 @@ def tuner_service(n: int, tb: int, dev, seed: int, card: str, main: dict,
     return out
 
 
+# the baseline's bound on max|L - chol64(A)| / max|A|: the ROADMAP's LAPACK
+# tolerance (tests/test_backend_equivalence.py), in f64 throughout
+BASELINE_TOL = 1e-10
+
+
+def _rel_err_host(l: np.ndarray, lref: torch.Tensor, amax: float,
+                  rows: int = 2048) -> float:
+    """max|L - lref| / max|A| of a host factor against one on the card, a
+    block of rows at a time; NaN where L holds one."""
+    err = torch.zeros((), dtype=torch.float64, device=lref.device)
+    for i in range(0, l.shape[0], rows):
+        got = torch.from_numpy(l[i:i + rows]).to(lref.device)
+        err = torch.maximum(err, (got - lref[i:i + rows]).abs().max())
+    return float(err) / amax
+
+
+def _card_indices(devices, dev) -> list:
+    """The cards ``md_devices`` gives: the first MD_NDEV, or ``dev``'s."""
+    if devices == "cuda":
+        return list(range(MD_NDEV))
+    return [torch.device(dev).index or 0]
+
+
+def baseline(n: int, tb: int, dev, seed: int, card: str, md: dict) -> dict:
+    """Phase 12, the baseline: ``distributed_cholesky`` (f64, four logical
+    devices as phase 7's) on phase 4's matrix, against the f64 factor on
+    the card, twice bitwise under the watchdog, its bytes against the
+    formula and the schedule, and a broadcast of zeros that must fail."""
+    import faulthandler
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.schedule import build_multidevice_schedule
+    devices, shared = md_devices(dev, MD_NDEV)
+    cards = _card_indices(devices, dev)
+    nt = n // tb
+    a = make_spd(n, dev, seed)
+    lref = torch.linalg.cholesky(a)
+    amax = float(a.abs().max())
+    log(f"baseline [{card}]: distributed_cholesky n={n} tb={tb} f64 on "
+        f"{MD_NDEV} logical devices, "
+        + ("sharing this one card, each on a CUDA stream of its own"
+           if shared else f"on {MD_NDEV} cards"))
+
+    def run():
+        torch.cuda.synchronize()
+        base = {c: torch.cuda.memory_allocated(c) for c in cards}
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        t0 = time.perf_counter()
+        l, stats = dist.distributed_cholesky_with_stats(a, tb, MD_NDEV,
+                                                        devices)
+        secs = time.perf_counter() - t0
+        peak = sum(torch.cuda.max_memory_allocated(c) - base[c]
+                   for c in cards)
+        return l, stats, secs, peak
+
+    runs = []
+    faulthandler.dump_traceback_later(MD_WATCHDOG_S, exit=True)
+    try:
+        for _ in range(2):
+            runs.append(run())
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    (l, stats, secs, peak), (l2, _, secs2, _) = runs
+    same = torch.equal(torch.from_numpy(l), torch.from_numpy(l2))
+    del l2, runs
+    rel = _rel_err_host(l, lref, amax)
+    del l
+    want = dist.panel_broadcast_bytes(nt, tb, MD_NDEV)
+    sched_bytes = build_multidevice_schedule(nt, tb, MD_NDEV).bcast_bytes()
+    a_s = md["A_unfused"]["factor_s"]
+    log(f"baseline [{card}]: {secs:.3f}s then {secs2:.3f}s (column steps "
+        f"{stats['factor_s']:.3f}s, the rest set-up and L to the host); "
+        f"device memory beyond the input and its f64 factor "
+        f"{peak / 2 ** 20:.0f} MiB at peak; phase 7's config A (f32, "
+        f"kernels) {a_s[0]:.3f}s, {a_s[1]:.3f}s; max|L - chol64(A)|/max|A| "
+        f"= {rel:.3e} (bound {BASELINE_TOL:.0e}); the two runs bitwise "
+        f"equal: {same}; bytes sent {stats['bcast_bytes']} in "
+        f"{stats['bcast_copies']} rows, panel_broadcast_bytes {want}, the "
+        f"schedule's bcast_bytes() {sched_bytes}")
+    require(math.isfinite(rel) and rel < BASELINE_TOL,
+            f"baseline error {rel}")
+    require(same, "baseline: two runs differ")
+    require(stats["bcast_bytes"] == want == sched_bytes
+            and stats["steps"] == nt
+            and stats["bcast_copies"] == nt * (MD_NDEV - 1),
+            f"baseline: counters {stats}, formula {want}, schedule "
+            f"{sched_bytes}")
+
+    # the control, swapped in here and not through an option of the
+    # package: every row sent arrives as zeros
+    send = dist._send
+    dist._send = lambda panel, device: torch.zeros(
+        panel.shape, dtype=panel.dtype, device=device)
+    try:
+        lc = dist.distributed_cholesky(a, tb, MD_NDEV, devices)
+    finally:
+        dist._send = send
+    ctrl = _rel_err_host(lc, lref, amax)
+    del lc
+    log(f"baseline: control, a broadcast of zeros: max|L - chol64(A)|/"
+        f"max|A| = {ctrl:.3e} (must reach {BASELINE_TOL:.0e})")
+    require(not ctrl < BASELINE_TOL,
+            f"baseline check passes the zeros control ({ctrl})")
+    return {"n": n, "tb": tb, "ndev": MD_NDEV, "shared_card": shared,
+            "seconds": [secs, secs2], "factor_s": stats["factor_s"],
+            "peak_bytes_beyond_input": peak, "rel_err": rel,
+            "tol": BASELINE_TOL, "bitwise": same, "stats": stats,
+            "panel_broadcast_bytes": want, "schedule_bcast_bytes": sched_bytes,
+            "control_rel_err": ctrl, "config_a_factor_s": a_s}
+
+
+def shim(n: int, tb: int, dev, seed: int, card: str) -> dict:
+    """Phase 12, the shim: ``ooc_cholesky`` on the main path's
+    configuration at ``n``: the deprecation, bitwise the planner path's
+    factor with the schedule's launches, its accuracy as the main path's,
+    and the raise for two devices where one card is visible."""
+    import warnings
+
+    import repro_torch
+    a = make_spd(n, dev, seed)
+    kw = dict(policy="v3", ladder="gpu", eps_target=MAIN_EPS,
+              use_pallas=True, compute_dtype=torch.float32)
+    repro_torch.reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        l, sched = repro_torch.ooc_cholesky(a, tb, device=dev, **kw)
+        secs = time.perf_counter() - t0
+    launches = repro_torch.launch_counts()
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, DeprecationWarning)]
+    want = schedule_launches(sched)
+    solver = repro_torch.plan(n, repro_torch.CholeskyConfig(
+        tb=tb, **kw).specialize(a)).compile(device=dev)
+    same = np.array_equal(l, solver.factor(a))
+    lref = torch.linalg.cholesky(a)
+    amax = float(a.abs().max())
+    rel = _rel_err_host(l, lref, amax)
+    bound = 64 * max(MAIN_EPS, 2.0 ** -24 * math.sqrt(n))   # phase 4's
+    log(f"shim [{card}]: ooc_cholesky n={n} tb={tb} {secs:.3f}s (plan, "
+        f"compile and factor); DeprecationWarning {warned}; bitwise the "
+        f"plan(...).compile() factor: {same}; launches {launches}, the "
+        f"schedule's {want}; max|L - chol64(A)|/max|A| = {rel:.3e} (bound "
+        f"{bound:.1e})")
+    require(any("repro_torch.plan" in w for w in warned),
+            f"shim: no DeprecationWarning naming repro_torch.plan "
+            f"({warned})")
+    require(same, "shim: factor differs from the planner path's")
+    require(sched.digest() == solver.schedule.digest(),
+            "shim: schedule differs from the planner path's")
+    require(launches == want, f"shim: launches {launches} != {want}")
+    require(math.isfinite(rel) and rel < bound, f"shim: error {rel}")
+    raised = None
+    if torch.cuda.device_count() < 2:
+        small = repro_torch.random_spd(64, seed=0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            try:
+                repro_torch.ooc_cholesky(small, 16, ndev=2, device="cuda")
+            except RuntimeError as e:
+                raised = str(e)
+        log(f"shim: ndev=2 on device='cuda' with one card visible raised "
+            f"RuntimeError: {raised}")
+        require(raised is not None and "needs 2 CUDA devices" in raised,
+                "shim: ndev=2 with one card did not raise RuntimeError")
+    else:
+        log(f"shim: the ndev=2 raise needs one visible card; this machine "
+            f"has {torch.cuda.device_count()}: skipped")
+    return {"n": n, "tb": tb, "seconds": secs, "warned": warned,
+            "bitwise_planner": same, "launches": launches,
+            "schedule_launches": want, "rel_err": rel, "bound": bound,
+            "ndev2_raise": raised}
+
+
+EXAMPLES_TIMEOUT_S = 300
+
+
+def examples(card: str) -> dict:
+    """Phase 12, the examples: each ``examples/torch_*.py`` at its
+    defaults on the card, all at once in their own processes; each must
+    exit 0.  Their output goes to ``chiprun_out/examples/``."""
+    import os
+    outdir = ROOT / "chiprun_out" / "examples"
+    outdir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for path in sorted((ROOT / "examples").glob("torch_*.py")):
+            with open(outdir / f"{path.name}.log", "w") as f:
+                procs[path.name] = subprocess.Popen(
+                    [sys.executable, str(path)], cwd=ROOT, env=env,
+                    stdout=f, stderr=subprocess.STDOUT)
+        require(len(procs) == 5, f"examples: found {sorted(procs)}")
+        out = {}
+        for name, proc in procs.items():
+            proc.wait(timeout=EXAMPLES_TIMEOUT_S)
+            out[name] = {"rc": proc.returncode,
+                         "seconds": time.perf_counter() - t0}
+            tail = ((outdir / f"{name}.log").read_text().strip()
+                    .splitlines()[-1:] or [""])
+            log(f"example {name} [{card}]: exit {proc.returncode} after "
+                f"{out[name]['seconds']:.1f}s; last line: {tail[0][:160]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    bad = {k: v["rc"] for k, v in out.items() if v["rc"] != 0}
+    require(not bad, f"examples failed: {bad} (chiprun_out/examples/)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -2796,6 +3025,11 @@ def main() -> int:
     torch.cuda.empty_cache()                    # 11. tuner and service
     ts = tuner_service(args.n, args.tb, dev, args.seed, card, main, checks,
                        trace_a)
+    torch.cuda.empty_cache()          # 12. the baseline, shim and examples
+    base = baseline(args.n, args.tb, dev, args.seed, card, md)
+    torch.cuda.empty_cache()
+    shim_res = shim(args.mxp_n, args.tb, dev, args.seed, card)
+    ex = examples(card)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -2823,7 +3057,8 @@ def main() -> int:
                                        else "unfused"]["launches"][name],
             "calibration_launches": ts["calibration"]["launches"][name],
             "tuned_launches": ts["tuned"]["launches"][name],
-            "served_launches": ts["serve"]["launches"][name]})
+            "served_launches": ts["serve"]["launches"][name],
+            "shim_launches": shim_res["launches"][name]})
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
                     "split", "device_ms", "library_device_ms", "geometry",
                     "grid", "geo_f64_launches", "geo_f64_mid_ms"):
@@ -2835,9 +3070,10 @@ def main() -> int:
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
          "fused": fused, "mxp": mxp, "geo": geo_res, "multidevice": md,
          "trace": traced, "disk_tier": disk, "lm": lm,
-         "tuner_service": ts, "kernels": kernels}, indent=1))
+         "tuner_service": ts, "baseline": base, "shim": shim_res,
+         "examples": ex, "kernels": kernels}, indent=1))
     log(card)
-    print(json.dumps({"kernels": kernels}))     # 12. kernels line
+    print(json.dumps({"kernels": kernels}))     # 13. kernels line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -39,7 +39,12 @@ precision plan by exact simulation; ``plan(n, CholeskyConfig(tb=0,
 policy="auto"))`` resolves through it.  The solver service:
 :mod:`repro_torch.serve` (:class:`SolverService`) puts tenants' sessions,
 multi-RHS batching and device-memory admission in front of the planner.
-See ROADMAP.md for what follows.
+
+The one-shot :func:`ooc_cholesky` remains as a deprecated shim over the
+planner, and :mod:`repro_torch.core.distributed` holds the reference's
+baseline (``distributed_cholesky``: a dense-update factorization over the
+logical devices that shares no code with the executors) and its byte and
+scaling formulas.  See ROADMAP.md for what follows.
 """
 from repro_torch.convert import config_from_reference, params_from_reference
 from repro_torch.core.analytics import (HW, HardwareModel, ascii_trace,
@@ -52,8 +57,8 @@ from repro_torch.core.api import (CholeskyConfig, CholeskyPlan, OOCSolver,
 from repro_torch.core.cholesky import (MultiDeviceTorchExecutor,
                                        SpillTorchExecutor,
                                        make_multidevice_torch_executor,
-                                       make_torch_executor, plan_for_matrix,
-                                       run_multidevice_spill,
+                                       make_torch_executor, ooc_cholesky,
+                                       plan_for_matrix, run_multidevice_spill,
                                        run_schedule_spill, run_traced_torch)
 from repro_torch.core.spill import (ArrayTileStore, DiskTileStore,
                                     SpilledHostStore, host_residency_at)
@@ -77,7 +82,8 @@ __all__ = [
     "__version__",
     "CholeskyConfig", "CholeskyPlan", "OOCSolver", "plan", "clear_plan_cache",
     "plan_cache_stats", "config_from_reference", "params_from_reference",
-    "make_torch_executor", "plan_for_matrix", "MultiDeviceTorchExecutor",
+    "make_torch_executor", "ooc_cholesky", "plan_for_matrix",
+    "MultiDeviceTorchExecutor",
     "make_multidevice_torch_executor", "SpillTorchExecutor",
     "run_schedule_spill", "run_multidevice_spill", "run_traced_torch",
     "DiskTileStore", "ArrayTileStore", "SpilledHostStore",

@@ -1340,3 +1340,62 @@ def plan_for_matrix(a, eps_target: float | None, ladder: str = "tpu",
         norms, total = tile_norms(a)
         amax = tile_amax(a)
     return assign_precision(norms, total, eps_target, ladder, tile_amax=amax)
+
+
+def ooc_cholesky(
+    a,
+    tb: int,
+    policy: str = "v3",
+    eps_target: float | None = None,
+    ladder: str = "tpu",
+    cache_slots: int = 0,
+    backend: str | None = None,
+    compute_dtype=None,
+    use_pallas: bool = False,
+    block: tuple = (4, 4),
+    ndev: int = 1,
+    device=None,
+) -> tuple[np.ndarray, MultiDeviceSchedule]:
+    """One-shot out-of-core Cholesky — deprecated shim over the planner API
+    (port of the reference's ``ooc_cholesky``).
+
+    .. deprecated::
+       Use ``repro_torch.plan(n, CholeskyConfig(...)).compile()``: the
+       static schedule and the executor are then built once and reused
+       across every same-shape factorization.  Each keyword is the
+       ``CholeskyConfig`` field of the same name; ``eps_target`` is frozen
+       with ``specialize(a)``.
+
+    ``a`` is an ndarray or a tensor on any device.  ``backend`` takes the
+    port's names (``"torch"``, ``"numpy"``, ``"auto"``, the default) and
+    reads the reference's ``"jax"`` as ``"torch"``; ``compute_dtype`` is a
+    torch dtype, as the config's.  ``device`` goes to ``compile``: the
+    card unless ``"cpu"`` (with ``ndev > 1``: one device or ``ndev`` of
+    them).  Returns ``(L, schedule)``: L lower-triangular (upper part
+    zero) as a host f64 ndarray, bitwise the planner path's factor, and
+    the unified :class:`MultiDeviceSchedule` (``ndev=1`` degenerate on one
+    device).  ``ndev > 1`` on the torch backend with fewer cards than
+    ``ndev`` raises ``RuntimeError`` at compile; invalid combinations
+    raise eagerly from config validation.
+    """
+    import warnings
+
+    from ..convert import _BACKENDS
+    from .api import CholeskyConfig, plan as _plan
+
+    warnings.warn(
+        "ooc_cholesky() is deprecated: use "
+        "repro_torch.plan(n, CholeskyConfig(...)).compile() to amortize "
+        "the schedule build and the executor across factorizations",
+        DeprecationWarning, stacklevel=2)
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a, dtype=np.float64)
+    backend = backend or "auto"
+    cfg = CholeskyConfig(
+        tb=tb, policy=policy, eps_target=eps_target, ladder=ladder,
+        cache_slots=cache_slots, backend=_BACKENDS.get(backend, backend),
+        compute_dtype=compute_dtype, use_pallas=use_pallas,
+        block=block, ndev=ndev,
+    ).specialize(a)
+    solver = _plan(a.shape[0], cfg).compile(device=device)
+    return solver.factor(a), solver.schedule

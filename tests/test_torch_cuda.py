@@ -1245,3 +1245,50 @@ def test_cuda_serve_two_tenants_bitwise(cuda):
                        (OpKind.POTRF, "potrf")):
         assert launches[name] == 2 * sched.count(kind)
     assert launches["fused_column_step"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_baseline_on_one_card(cuda):
+    """The baseline (``core/distributed.py``) on four logical devices of
+    one card, each on a stream of its own, against cuSOLVER's f64 factor
+    of the same matrix; the rows sent are the formula's bytes, and a
+    second run is bitwise the first."""
+    from repro_torch.core import distributed as dist
+    n, tb, p = 4096, 256, 4
+    nt = n // tb
+    a = _spd(n).astype(np.float64)
+    at = torch.from_numpy(a).to(cuda)
+    lref = torch.linalg.cholesky(at).cpu().numpy()
+    l, stats = dist.distributed_cholesky_with_stats(at, tb, p, [cuda] * p)
+    assert np.abs(l - lref).max() / np.abs(a).max() < 1e-10
+    assert stats.pop("factor_s") > 0
+    assert stats == {"steps": nt, "bcast_copies": nt * (p - 1),
+                     "bcast_bytes": dist.panel_broadcast_bytes(nt, tb, p)}
+    assert np.array_equal(l, dist.distributed_cholesky(a, tb, p, [cuda] * p))
+
+
+@pytest.mark.cuda
+def test_cuda_shim_is_bitwise_the_planner_path(cuda):
+    """``ooc_cholesky`` with the hand-written kernels: the planner path's
+    factor bitwise, with the schedule's launches."""
+    import warnings
+
+    import repro_torch
+    from repro_torch.core.schedule import OpKind
+    n, tb = 1024, 256
+    a = _spd(n).astype(np.float64)
+    kw = dict(policy="v3", ladder="gpu", eps_target=1e-6, use_pallas=True,
+              compute_dtype=torch.float32)
+    ops.reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        l, sched = repro_torch.ooc_cholesky(a, tb, device=cuda, **kw)
+    launches = ops.launch_counts()
+    assert any(issubclass(w.category, DeprecationWarning) for w in caught)
+    cfg = repro_torch.CholeskyConfig(tb=tb, **kw).specialize(a)
+    solver = repro_torch.plan(n, cfg).compile(device=cuda)
+    assert np.array_equal(l, solver.factor(a))
+    for kind, name in ((OpKind.GEMM, "mxp_gemm_update"),
+                       (OpKind.SYRK, "syrk_update"), (OpKind.TRSM, "trsm"),
+                       (OpKind.POTRF, "potrf")):
+        assert launches[name] == sched.count(kind)

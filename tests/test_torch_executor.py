@@ -255,7 +255,8 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core.api, "
             "repro_torch.kernels.ops, repro_torch.kernels._build, "
             "repro_torch.kernels.fused_column, repro_torch.core.analytics, "
-            "repro_torch.core.cholesky, repro_torch.geo, "
+            "repro_torch.core.cholesky, repro_torch.core.distributed, "
+            "repro_torch.geo, "
             "repro_torch.geo.matern, repro_torch.geo.likelihood, "
             "repro_torch.geo.kl, repro_torch.tune, repro_torch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
