@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Readings behind ``chip_smoke.py``'s flash and logit bounds, over seeds.
 
-    python3 benchmarks/torch_lm_bounds.py [--seeds 0 1 2]
+    python3 benchmarks/torch_lm_bounds.py [--seeds 0 1 2] [--moe]
 
 Runs ``chip_smoke.py``'s flash checks (every case, each output row against
 its allowance, the dropped-KV-tile and zeroed-output controls, and each
 bf16 case's mismatch share with its bf16-P control) and its LM
 phase (qwen3-14b at published widths and depth: prefill against the plain
 attention, against the decode replay, and the two faults each check must
-reject) once per seed.  A failed requirement is logged, not raised, so
+reject) once per seed; with ``--moe`` its MoE and MLA phase instead
+(deepseek-v2-lite-16b whole and dbrx-132b cut to two layers: the prefill
+against the decode replay at a dropless capacity with the controls each
+must reject, dbrx's flash prefill against the plain attention with its two
+faults, and deepseek's first MoE layer against the plain mix with its
+capacity control).  A failed requirement is logged, not raised, so
 every seed's reading is kept.  Needs a CUDA device; writes
-``chiprun_out/torch_lm_bounds.json``.
+``chiprun_out/torch_lm_bounds.json`` (``torch_moe_bounds.json`` with
+``--moe``).
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--moe", action="store_true",
+                    help="read the MoE and MLA phase instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_lm_bounds: needs a CUDA device", file=sys.stderr)
@@ -38,6 +46,8 @@ def main() -> int:
     _build.build()
     dev = torch.device("cuda")
     out = {"card": cs.card_line()}
+    if args.moe:
+        return moe_bounds(cs, dev, args.seeds, out)
     for seed in args.seeds:
         g = torch.Generator(device=dev).manual_seed(seed)
         out[f"seed {seed}"] = {"flash": cs.flash_checks(dev, g),
@@ -84,6 +94,39 @@ def main() -> int:
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "torch_lm_bounds.json").write_text(json.dumps(out, indent=1))
+    cs.log(out["card"])
+    return 0
+
+
+def moe_bounds(cs, dev, seeds, out) -> int:
+    rows = {}
+    for seed in seeds:
+        run = cs.moe_mla_serving(dev, seed, out["card"])
+        out[f"seed {seed}"] = run
+        torch.cuda.empty_cache()
+        ds, db = run["deepseek"], run["dbrx"]
+        rows[seed] = {
+            "deepseek_replay_f32": ds["replay"]["rel_diff"],
+            "deepseek_replay_bf16": ds["replay_served_dtype"]["rel_diff"],
+            "deepseek_replay_bf16_argmax_agree": ds["replay_served_dtype"][
+                "argmax_agree"],
+            "deepseek_replay_controls": {
+                k: c["rel_diff"] for k, c in ds["replay"]["controls"].items()},
+            "deepseek_mix_rel_err": ds["moe_layer_vs_plain_mix"]["rel_err"],
+            "deepseek_mix_control": ds["moe_layer_vs_plain_mix"][
+                "control_rel_err"],
+            "dbrx_prefill_vs_plain": db["prefill_vs_plain_rel"],
+            "dbrx_prefill_controls": db["prefill_controls"],
+            "dbrx_replay": db["replay"]["rel_diff"],
+            "dbrx_replay_controls": {
+                k: c["rel_diff"] for k, c in db["replay"]["controls"].items()},
+            "decode_tokens_per_s": [ds["decode_tokens_per_s"],
+                                    db["decode_tokens_per_s"]]}
+        cs.log(f"seed {seed}: " + json.dumps(rows[seed]))
+    out["summary"] = rows
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    (outdir / "torch_moe_bounds.json").write_text(json.dumps(out, indent=1))
     cs.log(out["card"])
     return 0
 

@@ -101,11 +101,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    differ;
 10. LM serving, qwen3-14b at published widths and depth (bf16 activations,
    f32 parameters from ``--seed``, the flash flag on): the flash kernels
-   against their plain version at the prefill shape and nine others, each
+   against their plain version at the prefill shape, dbrx-132b's and nine
+   others, each
    output row at its own scale (a zeroed output and a dropped KV tile must
    fail that check), each bf16 case also by the share of outputs that
-   differ (P rounded to bf16 must fail that check), timed at the prefill
-   shape beside the FFMA kernel on the same bf16 inputs, the plain version,
+   differ (P rounded to bf16 must fail that check), timed at the two
+   prefill shapes beside the FFMA kernel on the same bf16 inputs, the plain version,
    PyTorch's SDPA and the bound; a prefill step on 4 x 2048 tokens (40
    tensor-core flash launches, none on FFMA, logits finite, padding
    masked), the same step with the
@@ -114,6 +115,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt; both logit checks must reject two faults (the flash kernel
    without its causal mask, the attention output dropped); decode tokens/s
    is the median of six windows;
+10b. MoE and MLA serving: deepseek-v2-lite-16b at published widths and
+   depth (15,706,484,224 f32 parameters from ``--seed``, the reference's
+   count; MLA, a dense first layer, 2 shared and 64 routed experts top-6):
+   a 4 x 2048 prefill twice, timed, launching none of the port's kernels,
+   the share of the first MoE layer's assignments that capacity 1.25 drops
+   (counted here from its router, against the dispatch's own count); on a
+   128-token prompt the logits at capacity 1.25 beside the dropless ones,
+   its first MoE layer in f32 on those 512 tokens against the per-token
+   plain mix (twice, bitwise; a capacity that drops must fail), and the
+   dropless prefill against its decode replay in f32 activations with three
+   controls that must fail (the routed experts' output zeroed, MLA's rope
+   term dropped, MLA's causal mask dropped, each a port function swapped
+   here for its run), and in bf16, logged; decode tokens/s over six
+   windows, peak memory.  Then dbrx-132b at
+   published widths cut to 2 of its 40 layers (31.0 GB of f32 weights; 40
+   would be 526 GB): the same, with 2 tensor-core flash launches a prefill
+   step, the flash prefill against the plain attention's (two faults must
+   fail), and the replay in bf16 with the controls the routed experts
+   zeroed and the flash kernel without its causal mask; the phase's
+   seconds;
 11. tuner and service: ``repro_torch.tune.calibrate`` on the card at the
    main path's tile size in f32 (every one of the five Cholesky kernels
    launched; ``mem_bytes`` the card's total memory; each per-class rate
@@ -152,17 +173,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    output in ``chiprun_out/examples/``);
 13. the kernels line (JSON; each kernel also with its launches in config
    A, in the disk tier, in calibration, in the tuned factor, in the
-   served pair and through the shim) and the last line,
+   served pair and through the shim; flash attention also with dbrx's
+   prefill's) and the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
 ``chiprun_out/chip_smoke.json`` as well.  ``--n``, ``--mxp-n``, ``--geo-n``,
 ``--spill-n`` and ``--tb`` cut the Cholesky sizes for a quick run; the
-model runs at full width and depth.
+models run at full width, and at full depth but for dbrx's.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -2119,9 +2142,11 @@ def disk_tier(n: int, tb: int, dev, seed: int, card: str) -> dict:
 
 
 # flash cases: (tag, B, S, T, H, KV, hd, dtype, causal); the first is
-# qwen3-14b's prefill shape, the one timed and reported
+# qwen3-14b's prefill shape, the one reported in the kernels line, the
+# second dbrx-132b's; both are timed
 FLASH_CASES = (
     ("prefill", 4, 2048, 2048, 40, 8, 128, torch.bfloat16, True),
+    ("dbrx prefill", 4, 2048, 2048, 48, 8, 128, torch.bfloat16, True),
     ("f32,hd64", 1, 512, 512, 8, 2, 64, torch.float32, True),
     ("f32,hd128", 1, 512, 512, 40, 8, 128, torch.float32, True),
     ("bf16,hd64", 1, 512, 512, 8, 2, 64, torch.bfloat16, True),
@@ -2282,7 +2307,7 @@ def flash_checks(dev, g) -> dict:
                             "mismatch_bound": FLASH_MISMATCH_BOUND,
                             "ffma_mismatch_share": ffma_share,
                             "control_bf16_p_mismatch_share": ctrl_p})
-            if tag == "prefill":
+            if tag in ("prefill", "dbrx prefill"):
                 del got, want
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 row.update({
@@ -2330,6 +2355,73 @@ def _logit_diff(got, want, vocab):
     return diff, float(want.abs().max()), same
 
 
+def flash_faults() -> dict:
+    """Faults the logit checks must catch, each passed as a prefill's
+    attention: the flash kernel without its causal mask, and the
+    attention's output dropped."""
+    from repro_torch.kernels.flash_attention import flash_gqa
+    return {
+        "no causal mask": lambda q, k, v, **kw: flash_gqa(
+            q, k, v, **{**kw, "causal": False}),
+        "attention dropped": lambda q, k, v, **kw: torch.zeros_like(q)}
+
+
+def timed_prefill(cfg, params, tokens, want_launches: dict,
+                  want_variants: dict, tag: str):
+    """Two prefill steps of ``tokens``, each timed and its launches held
+    to ``want_launches`` (every kernel of the port) and its flash variants
+    to ``want_variants``.  Returns (logits, seconds, launches, variants)."""
+    import repro_torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    prefill = make_prefill_step(cfg)
+    seconds, launches, variants = [], None, None
+    for _ in range(2):
+        repro_torch.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = repro_torch.launch_counts()
+        variants = ops.flash_variant_counts()
+        require(launches == want_launches,
+                f"{tag} prefill launches {launches} != {want_launches}")
+        require(variants == want_variants,
+                f"{tag} prefill flash variants {variants} != {want_variants}")
+    v = cfg.vocab
+    require(tuple(logits.shape) == (tokens.shape[0], cfg.padded_vocab),
+            f"{tag} prefill logits {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits[:, :v]).all()),
+            f"{tag} prefill logits finite")
+    require(bool((logits[:, v:] <= -1e29).all()),
+            f"{tag} padding columns masked")
+    return logits, seconds, launches, variants
+
+
+def decode_windows(params, cfg, batch: int, prompt_len: int, gen_len: int,
+                   tok, windows: int) -> list:
+    """Decode tokens/s of ``windows`` windows of ``gen_len - 1`` greedy
+    steps from ``tok`` at positions ``prompt_len`` on, through the serve
+    step on a fresh cache."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import dtype_of
+    serve = make_serve_step(cfg)
+    cache = T.init_cache(cfg, batch, prompt_len + gen_len,
+                         dtype_of(cfg.dtype), tok.device)
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(prompt_len, prompt_len + gen_len - 1):
+            step_logits, cache = serve(params, cache, tok, pos)
+            tok = torch.argmax(step_logits[..., :cfg.vocab], dim=-1)
+        torch.cuda.synchronize()
+        out.append(batch * (gen_len - 1) / (time.perf_counter() - t0))
+    return out
+
+
 def lm_serving(dev, seed: int) -> dict:
     """qwen3-14b's serving path: prefill through the flash kernel, the same
     step with the plain attention, and the decode server."""
@@ -2338,19 +2430,13 @@ def lm_serving(dev, seed: int) -> dict:
     import repro_torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_gqa, flash_gqa_ref
+    from repro_torch.kernels.flash_attention import flash_gqa_ref
     from repro_torch.launch.serve import decode_tokens
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import transformer as T
-    from repro_torch.models.layers import dtype_of
     cfg = dataclasses.replace(get_config("qwen3-14b"), use_flash_attention=True)
     n_layers = cfg.num_layers
-    # faults the logit checks must catch: the kernel without its causal
-    # mask, and the attention's output dropped
-    faults = {
-        "no causal mask": lambda q, k, v, **kw: flash_gqa(
-            q, k, v, **{**kw, "causal": False}),
-        "attention dropped": lambda q, k, v, **kw: torch.zeros_like(q)}
+    faults = flash_faults()
     only_flash = {**dict.fromkeys(repro_torch.launch_counts(), 0),
                   "flash_attention": n_layers}
     # every layer on the tensor cores: bf16 at hd 128
@@ -2371,26 +2457,9 @@ def lm_serving(dev, seed: int) -> dict:
     # prefill: 4 x 2048 tokens, flash at bq = bk = 512
     batch, seq = 4, 2048
     tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
-    prefill = make_prefill_step(cfg)
-    prefill_s, launches = [], None
-    for _ in range(2):
-        repro_torch.reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        prefill_s.append(time.perf_counter() - t0)
-        launches = repro_torch.launch_counts()
-        variants = ops.flash_variant_counts()
-        require(launches == only_flash,
-                f"prefill launches {launches} != {only_flash}")
-        require(variants == only_tc,
-                f"prefill flash variants {variants} != {only_tc}")
+    logits, prefill_s, launches, variants = timed_prefill(
+        cfg, params, tokens, only_flash, only_tc, cfg.name)
     v = cfg.vocab
-    require(tuple(logits.shape) == (batch, cfg.padded_vocab),
-            f"prefill logits {tuple(logits.shape)}")
-    require(bool(torch.isfinite(logits[:, :v]).all()), "prefill logits finite")
-    require(bool((logits[:, v:] <= -1e29).all()), "padding columns masked")
     tok_s = batch * seq / prefill_s[-1]
     log(f"lm: prefill {batch}x{seq} in {prefill_s[0]:.3f}s then "
         f"{prefill_s[1]:.3f}s ({tok_s:.0f} tokens/s); launches per step "
@@ -2438,20 +2507,9 @@ def lm_serving(dev, seed: int) -> dict:
             and int(out_tokens.min()) >= 0 and int(out_tokens.max()) < v,
             f"generated tokens {out_tokens.shape}")
     # more windows of the same gen_len - 1 steps, through the serve step
-    serve = make_serve_step(cfg)
-    cache = T.init_cache(cfg, batch, prompt_len + gen_len,
-                         dtype_of(cfg.dtype), dev)
     tok = torch.as_tensor(out_tokens[:, -1:], device=dev)
-    windows = [decode_tok_s]
-    for _ in range(DECODE_WINDOWS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for pos in range(prompt_len, prompt_len + gen_len - 1):
-            step_logits, cache = serve(params, cache, tok, pos)
-            tok = torch.argmax(step_logits[..., :v], dim=-1)
-        torch.cuda.synchronize()
-        windows.append(batch * (gen_len - 1) / (time.perf_counter() - t0))
-    del cache, step_logits
+    windows = [decode_tok_s] + decode_windows(
+        params, cfg, batch, prompt_len, gen_len, tok, DECODE_WINDOWS)
     decode_median = statistics.median(windows)
     step_ms = batch / decode_median * 1e3
     log(f"lm: serve {batch} x ({prompt_len} prompt + {gen_len} generated) in "
@@ -2508,6 +2566,371 @@ def lm_serving(dev, seed: int) -> dict:
             "prefill128_max_logit": scale128,
             "prefill128_vs_replay_argmax_agree": same128,
             "peak_gb": peak_gb}
+
+
+# Phase 10b, MoE and MLA serving.  deepseek-v2-lite-16b at its published
+# widths and depth (MLA in every layer, a dense first layer, 2 shared and 64
+# routed experts top-6 after it), and dbrx-132b at its published widths with
+# DBRX_LAYERS of its 40 layers (GQA through the flash kernel, 16 routed
+# experts top-4): its 40 layers hold 526 GB of f32 weights, 2 hold 31.0 GB.
+MOE_PREFILL = (4, 2048)          # the timed prefill's batch and sequence
+DBRX_LAYERS = 2
+DEEPSEEK_PARAMS = 15_706_484_224  # the reference's abstract init's count
+# Bounds on max|logit difference| / max|logit| between a 128-token prompt's
+# prefill and its decode replay, both at a dropless capacity (the config's
+# 1.25 may drop assignments in a prefill that one-token decode steps never
+# drop), each 3 times the worst sound reading over seeds 0-2
+# (benchmarks/torch_lm_bounds.py --moe, NVIDIA H100 80GB HBM3, 700 W).
+# dbrx in bf16, its served type: 0.0163-0.0398; its controls 0.72 or more.
+# deepseek in bf16 read 0.066-0.140 (one row's argmax differing), its
+# controls 0.47 or more, which leaves no room for a bound.  The suspect (not
+# counted): bf16 roundings that differ between the two paths flip top-6
+# choices among 64 experts in 26 routed layers, and a flipped token's
+# output moves by a whole expert's share.  In f32 a flip needs a top-k
+# margin within f32's roundoff, and the same check read 3.35e-6 to 4.00e-6
+# with the same controls, so deepseek's replay is held with f32
+# activations and its bf16 reading is logged.
+MOE_REPLAY_REL_BOUND = 0.12
+DEEPSEEK_REPLAY_F32_REL_BOUND = 1.2e-5
+# One MoE layer in f32 against the per-token plain mix written out expert by
+# expert: f32 products over d = 2048 and f = 1408 and sums of 8 gated terms
+# in other orders, about 2^-24 sqrt(2048) of the output's scale; the bound
+# is max|diff| <= MIX_REL_TOL max|plain|.  The card read 7.3e-7 to 1.06e-6
+# over seeds 0-2.  The same layer at capacity MIX_CONTROL_CF, where an
+# expert holds its mean load and the busier ones drop assignments, must fail
+# it (it read 0.40 or more).
+MIX_REL_TOL = 1e-5
+MIX_TOKENS = 512
+MIX_CONTROL_CF = 1.0
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` for the block's duration (a
+    control's fault; the package has no option for it)."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def moe_drop_share(p, cfg, x, cf: float) -> tuple:
+    """The share of ``x``'s assignments that a capacity factor ``cf`` drops
+    in the MoE layer ``p``, counted here from its router (each expert keeps
+    at most its capacity), and the port's dispatch's own kept count."""
+    from repro_torch.models import moe as M
+    xt = x.reshape(-1, x.shape[-1])
+    t, k, e = xt.shape[0], cfg.top_k, cfg.n_experts
+    probs = torch.softmax(xt.float() @ p.router.float(), dim=-1)
+    idx = torch.topk(probs, k, dim=-1).indices
+    cap = M.capacity(t, k, e, cf)
+    counts = torch.bincount(idx.reshape(-1), minlength=e)
+    kept = int(counts.clamp(max=cap).sum())
+    _, port_idx = M.route(p, cfg, xt)
+    port_kept = int(M._dispatch(xt, port_idx, 1, e, cap)[2].sum())
+    return 1.0 - kept / (t * k), kept, port_kept, cap
+
+
+def first_moe_call(run):
+    """``run()`` with the port's ``apply_moe`` wrapped to keep its first
+    call's layer and input; returns (run's result, (layer, input))."""
+    from repro_torch.models import moe as M
+    seen = []
+    orig = M.apply_moe
+
+    def keep(p, cfg, x, *args, **kw):
+        if not seen:
+            seen.append((p, x.clone()))
+        return orig(p, cfg, x, *args, **kw)
+    with swapped(M, "apply_moe", keep):
+        out = run()
+    return out, seen[0]
+
+
+def moe_layer_vs_plain_mix(p, cfg, x) -> dict:
+    """One MoE layer at full width in f32 on ``x``'s tokens at ample
+    capacity (every expert holds all its assignments) against the per-token
+    plain mix, expert by expert plus the shared experts; twice, bitwise; the
+    same layer at capacity MIX_CONTROL_CF must fail the check."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import apply_mlp
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 off for f32")
+    xt = x.reshape(-1, x.shape[-1]).float()
+    e, k = cfg.n_experts, cfg.top_k
+    ample = e / k                      # cap = the tokens: nothing dropped
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = M.apply_moe(p, cfg, xt[None], capacity_factor=ample)[0]
+    torch.cuda.synchronize()
+    port_s = time.perf_counter() - t0
+    again = M.apply_moe(p, cfg, xt[None], capacity_factor=ample)[0]
+    share, _, _, _ = moe_drop_share(p, cfg, xt, ample)
+    require(share == 0.0, f"ample capacity drops {share}")
+    gates, idx = M.route(p, cfg, xt)
+    want = torch.zeros_like(xt)
+    for j in range(e):
+        pe = SimpleNamespace(wi=p.wi[j], wo=p.wo[j], wg=p.wg[j])
+        w = ((idx == j) * gates).sum(-1)[:, None]
+        want = want + w * apply_mlp(pe, xt, cfg.mlp_act)
+    if cfg.n_shared_experts:
+        want = want + apply_mlp(SimpleNamespace(
+            wi=p.shared_wi, wo=p.shared_wo, wg=p.shared_wg), xt, cfg.mlp_act)
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    dropped = M.apply_moe(p, cfg, xt[None], capacity_factor=MIX_CONTROL_CF)[0]
+    cdiff = float((dropped - want).abs().max())
+    cshare = moe_drop_share(p, cfg, xt, MIX_CONTROL_CF)[0]
+    out = {"tokens": xt.shape[0], "max_abs_err": diff, "max_abs": scale,
+           "rel_err": diff / scale, "rel_tol": MIX_REL_TOL,
+           "bitwise_run_to_run": bool(torch.equal(got, again)),
+           "port_s": port_s, "control_capacity": MIX_CONTROL_CF,
+           "control_drop_share": cshare, "control_rel_err": cdiff / scale}
+    log(f"moe: one {cfg.name} MoE layer in f32 on {xt.shape[0]} tokens at "
+        f"ample capacity vs the plain mix: max|diff| {diff:.3e} = "
+        f"{diff / scale:.3e} x max|out| {scale:.3f} (bound {MIX_REL_TOL:.0e}); "
+        f"run to run bitwise {out['bitwise_run_to_run']}; control at "
+        f"capacity {MIX_CONTROL_CF} (drops {cshare:.4f}): "
+        f"{cdiff / scale:.3e} (must exceed the bound)")
+    require(diff <= MIX_REL_TOL * scale, f"MoE layer vs plain mix {diff}")
+    require(out["bitwise_run_to_run"], "MoE layer run to run")
+    require(cdiff > MIX_REL_TOL * scale,
+            f"the plain-mix check passes the capacity control ({cdiff})")
+    return out
+
+
+def moe_replay(cfg, params, prompts, gen_len: int, controls: dict,
+               flash, bound) -> dict:
+    """The last-position logits of ``prompts``' prefill against their
+    decode replay (``decode_tokens``), both at a dropless capacity, within
+    ``bound`` (None: logged only); each control, (flash, context) for the
+    prefill, must exceed it.  Returns the reading and the replay's
+    generated tokens."""
+    import dataclasses
+
+    from repro_torch.launch.serve import decode_tokens
+    from repro_torch.launch.steps import make_prefill_step
+    dropless = dataclasses.replace(cfg, moe_capacity=float(cfg.n_experts))
+    v = cfg.vocab
+    short = make_prefill_step(dropless, flash=flash)(params,
+                                                     {"tokens": prompts})
+    t0 = time.perf_counter()
+    tokens, tok_s, replay_logits = decode_tokens(params, dropless, prompts,
+                                                 gen_len)
+    serve_s = time.perf_counter() - t0
+    replay = replay_logits[:, 0]
+    diff, scale, same = _logit_diff(short, replay, v)
+    log(f"moe: {cfg.name} prefill of a {prompts.shape[1]}-token prompt vs "
+        f"its decode replay, dropless, {cfg.dtype}: max|diff| {diff:.4e} = "
+        f"{diff / scale:.4e} x max|logit| {scale:.3f} (bound {bound}); "
+        f"argmax agrees in {same}/{prompts.shape[0]}")
+    require(bound is None or diff <= bound * scale,
+            f"{cfg.name} prefill vs replay {diff}")
+    out = {"dtype": cfg.dtype, "rel_diff": diff / scale, "max_logit": scale,
+           "argmax_agree": same, "bound": bound, "serve_s": serve_s,
+           "replay_tokens_per_s": tok_s, "controls": {}}
+    for name, (cflash, ctx) in controls.items():
+        with ctx():
+            bad = make_prefill_step(dropless, flash=cflash)(
+                params, {"tokens": prompts})
+        cd, _, csame = _logit_diff(bad, replay, v)
+        out["controls"][name] = {"rel_diff": cd / scale, "argmax_agree": csame}
+        log(f"moe: {cfg.name} control {name} vs the replay: "
+            f"{cd / scale:.4f} x max|logit| (must exceed {bound}); argmax "
+            f"agrees in {csame}/{prompts.shape[0]}")
+        require(cd > bound * scale,
+                f"{cfg.name} replay check passes the {name} control ({cd})")
+        del bad
+    return out, tokens
+
+
+def serve_moe_model(cfg, dev, seed: int, controls: dict,
+                    replay_bound: float, replay_dtype: str | None = None,
+                    mix_check: bool = False) -> dict:
+    """One MoE model on the card: parameters from ``seed``, the timed
+    prefill, the capacity's drops, the replay check and its controls
+    (with ``replay_dtype`` activations, the bf16 replay then logged), and
+    decode windows; with ``mix_check`` its first MoE layer against the
+    plain mix."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.kernels.flash_attention import flash_gqa, flash_gqa_ref
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    n_flash = cfg.num_layers if cfg.use_flash_attention and not cfg.mla else 0
+    want_launches = {**dict.fromkeys(repro_torch.launch_counts(), 0),
+                     "flash_attention": n_flash}
+    want_variants = {"tensor_core": n_flash, "ffma": 0}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_gb = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"moe: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model}, "
+        f"{'MLA' if cfg.mla else 'GQA'}, {cfg.n_experts} experts top-"
+        f"{cfg.top_k} (+{cfg.n_shared_experts} shared), {n_params:,} "
+        f"parameters ({param_gb:.2f} GB f32) made in {init_s:.2f}s")
+    out = {"model": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "param_gb": param_gb, "init_s": init_s}
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    # the timed prefill at the config's capacity, and what it drops in the
+    # first MoE layer
+    batch, seq = MOE_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
+    (logits, prefill_s, launches, variants), (moe_p, moe_x) = first_moe_call(
+        lambda: timed_prefill(cfg, params, tokens, want_launches,
+                              want_variants, cfg.name))
+    share, kept, port_kept, cap = moe_drop_share(moe_p, cfg, moe_x,
+                                                 cfg.moe_capacity)
+    require(kept == port_kept, f"dispatch keeps {port_kept}, count {kept}")
+    log(f"moe: {cfg.name} prefill {batch}x{seq} in {prefill_s[0]:.3f}s then "
+        f"{prefill_s[1]:.3f}s ({batch * seq / prefill_s[1]:.0f} tokens/s); "
+        f"launches {launches}; capacity {cfg.moe_capacity} ({cap} slots) "
+        f"drops {share:.4f} of the first MoE layer's assignments")
+    out.update({"prefill_batch": batch, "prefill_seq": seq,
+                "prefill_s": prefill_s,
+                "prefill_tokens_per_s": batch * seq / prefill_s[1],
+                "prefill_launches": launches,
+                "prefill_flash_variants": variants,
+                "prefill_drop_share": share, "prefill_capacity_slots": cap})
+    if n_flash:
+        plain = make_prefill_step(cfg, flash=flash_gqa_ref)(
+            params, {"tokens": tokens})
+        diff, scale, same = _logit_diff(logits, plain, cfg.vocab)
+        log(f"moe: {cfg.name} prefill with flash_gqa_ref: max|flash - plain| "
+            f"= {diff / scale:.4f} x max|logit| {scale:.3f} (bound "
+            f"{PREFILL_REL_BOUND:.4f}); top-1 agrees in {same}/{batch}")
+        require(diff <= PREFILL_REL_BOUND * scale,
+                f"{cfg.name} prefill vs plain {diff}")
+        out["prefill_vs_plain_rel"] = diff / scale
+        out["prefill_controls"] = {}
+        for name, attn in flash_faults().items():
+            bad = make_prefill_step(cfg, flash=attn)(params,
+                                                     {"tokens": tokens})
+            cd = _logit_diff(bad, plain, cfg.vocab)[0]
+            out["prefill_controls"][name] = cd / scale
+            log(f"moe: {cfg.name} control {name} vs plain: {cd / scale:.4f} "
+                f"x max|logit| (must exceed {PREFILL_REL_BOUND:.4f})")
+            require(cd > PREFILL_REL_BOUND * scale,
+                    f"{cfg.name} prefill check passes the {name} control")
+            del bad
+        del plain
+    del logits
+
+    # a 128-token prompt: the config's capacity beside the dropless one,
+    # then the replay check
+    prompt_len, gen_len = 128, 16
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
+                            device=dev)
+    at_cfg, (moe_p, moe_x) = first_moe_call(lambda: make_prefill_step(cfg)(
+        params, {"tokens": prompts}))
+    dropless = make_prefill_step(dataclasses.replace(
+        cfg, moe_capacity=float(cfg.n_experts)))(params, {"tokens": prompts})
+    cdiff, cscale, csame = _logit_diff(at_cfg, dropless, cfg.vocab)
+    share128 = moe_drop_share(moe_p, cfg, moe_x, cfg.moe_capacity)[0]
+    log(f"moe: {cfg.name} {batch}x{prompt_len} prefill at capacity "
+        f"{cfg.moe_capacity} (drops {share128:.4f} in the first MoE layer) vs "
+        f"dropless: max|diff| {cdiff / cscale:.4f} x max|logit|; argmax "
+        f"agrees in {csame}/{batch}")
+    out["prompt_capacity"] = {"drop_share": share128,
+                              "rel_diff_vs_dropless": cdiff / cscale,
+                              "argmax_agree": csame}
+    if mix_check:
+        out["moe_layer_vs_plain_mix"] = moe_layer_vs_plain_mix(
+            moe_p, cfg, moe_x.reshape(-1, cfg.d_model)[:MIX_TOKENS])
+    del at_cfg, dropless, moe_x
+    checked = (cfg if replay_dtype is None
+               else dataclasses.replace(cfg, dtype=replay_dtype))
+    out["replay"], gen_tokens = moe_replay(checked, params, prompts, gen_len,
+                                           controls, flash_gqa, replay_bound)
+    if replay_dtype is not None:
+        out["replay_served_dtype"], gen_tokens = moe_replay(
+            cfg, params, prompts, gen_len, {}, flash_gqa, None)
+    require(gen_tokens.shape == (batch, gen_len)
+            and int(gen_tokens.min()) >= 0
+            and int(gen_tokens.max()) < cfg.vocab,
+            f"{cfg.name} generated tokens {gen_tokens.shape}")
+
+    # decode at the config's capacity
+    tok = torch.as_tensor(gen_tokens[:, -1:], device=dev)
+    repro_torch.reset_counts()
+    windows = decode_windows(params, cfg, batch, prompt_len, gen_len, tok,
+                             DECODE_WINDOWS + 1)
+    decode_launches = repro_torch.launch_counts()
+    require(set(decode_launches.values()) == {0},
+            f"{cfg.name} decode launched {decode_launches}")
+    median = statistics.median(windows)
+    log(f"moe: {cfg.name} decode {batch} x ({prompt_len} + {gen_len}) over "
+        f"{len(windows)} windows of {gen_len - 1} steps: median "
+        f"{median:.1f} tokens/s ({batch / median * 1e3:.1f} ms a step), min "
+        f"{min(windows):.1f}, max {max(windows):.1f}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"moe: {cfg.name} peak device memory {peak_gb:.2f} GB")
+    out.update({"serve_prompt_len": prompt_len, "serve_gen_len": gen_len,
+                "decode_tokens_per_s": median,
+                "decode_window_tokens_per_s": windows,
+                "decode_step_ms": batch / median * 1e3, "peak_gb": peak_gb})
+    del params
+    return out
+
+
+def moe_mla_serving(dev, seed: int, card: str) -> dict:
+    """Phase 10b: deepseek-v2-lite-16b whole, then dbrx-132b cut to
+    DBRX_LAYERS layers, each served on the card with its checks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_gqa
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    t_phase = time.perf_counter()
+
+    def no_routed():
+        return swapped(M, "_expert_ffn", lambda p, h, act: torch.zeros_like(h))
+
+    orig_qc, orig_attend = A._mla_qc, A._mla_attend
+
+    def no_rope():
+        def qc(*args):
+            q_nope, q_rope, c_kv, k_rope = orig_qc(*args)
+            return q_nope, torch.zeros_like(q_rope), c_kv, k_rope
+        return swapped(A, "_mla_qc", qc)
+
+    def no_mask():
+        return swapped(A, "_mla_attend", lambda p, cfg, qn, qr, c, k, mask:
+                       orig_attend(p, cfg, qn, qr, c, k,
+                                   torch.ones_like(mask)))
+
+    deepseek = get_config("deepseek-v2-lite-16b")
+    out = {"card": card, "deepseek": serve_moe_model(
+        deepseek, dev, seed, {
+            "routed experts zeroed": (flash_gqa, no_routed),
+            "MLA rope term dropped": (flash_gqa, no_rope),
+            "MLA causal mask dropped": (flash_gqa, no_mask)},
+        DEEPSEEK_REPLAY_F32_REL_BOUND, replay_dtype="float32",
+        mix_check=True)}
+    require(out["deepseek"]["params"] == DEEPSEEK_PARAMS,
+            f"deepseek parameters {out['deepseek']['params']:,}")
+    torch.cuda.empty_cache()
+    dbrx = dataclasses.replace(get_config("dbrx-132b"),
+                               num_layers=DBRX_LAYERS,
+                               use_flash_attention=True)
+    out["dbrx"] = serve_moe_model(dbrx, dev, seed, {
+        "routed experts zeroed": (flash_gqa, no_routed),
+        "no causal mask": (flash_faults()["no causal mask"],
+                           contextlib.nullcontext)},
+        MOE_REPLAY_REL_BOUND)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"moe: phase 10b [{card}] took {out['seconds']:.1f}s")
+    return out
 
 
 # Phase 11, the tuner and the solver service.  The burst: SERVE_BURST
@@ -3022,6 +3445,8 @@ def main() -> int:
         f"{torch.cuda.memory_allocated(dev) / 2 ** 20:.0f} MiB")
     checks.update(flash_checks(dev, g))
     lm = lm_serving(dev, args.seed)
+    torch.cuda.empty_cache()                    # 10b. MoE and MLA serving
+    moe = moe_mla_serving(dev, args.seed, card)
     torch.cuda.empty_cache()                    # 11. tuner and service
     ts = tuner_service(args.n, args.tb, dev, args.seed, card, main, checks,
                        trace_a)
@@ -3041,7 +3466,8 @@ def main() -> int:
             row = {**row, "geo_f64_launches": geo_res["launches"][name],
                    "geo_f64_mid_ms": geo_res["fused_step_f64_mid"]["ms"]}
         elif name == "flash_attention":
-            row = checks[f"{name}[prefill]"]
+            row = {**checks[f"{name}[prefill]"], "dbrx_prefill_launches":
+                   moe["dbrx"]["prefill_launches"][name]}
             launches = lm["prefill_launches"][name]
         else:
             row = checks[f"{name}[float32]"]
@@ -3061,7 +3487,8 @@ def main() -> int:
             "shim_launches": shim_res["launches"][name]})
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
                     "split", "device_ms", "library_device_ms", "geometry",
-                    "grid", "geo_f64_launches", "geo_f64_mid_ms"):
+                    "grid", "geo_f64_launches", "geo_f64_mid_ms",
+                    "dbrx_prefill_launches"):
             if key in row:
                 kernels[-1][key] = row[key]
     outdir = ROOT / "chiprun_out"
@@ -3069,7 +3496,7 @@ def main() -> int:
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
          "fused": fused, "mxp": mxp, "geo": geo_res, "multidevice": md,
-         "trace": traced, "disk_tier": disk, "lm": lm,
+         "trace": traced, "disk_tier": disk, "lm": lm, "moe": moe,
          "tuner_service": ts, "baseline": base, "shim": shim_res,
          "examples": ex, "kernels": kernels}, indent=1))
     log(card)

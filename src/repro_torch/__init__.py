@@ -18,9 +18,10 @@ schedules, on the host), the analytics (byte volumes, the event simulators
 over the ``HW`` datasheet presets, the traces), and the geospatial
 workload in :mod:`repro_torch.geo` (Matérn covariances, the Gaussian
 log-likelihood and the MxP KL divergence, on the card by default).  It
-also covers the LM scaffold's serving path for the dense family
-(``configs``, ``models``, ``launch``: prefill through the hand-written
-flash attention kernel, and the decode server), with
+also covers the LM scaffold's serving path for the dense, MoE and MLA
+families (``configs``, ``models``, ``launch``: prefill through the
+hand-written flash attention kernel where a model attends with GQA, and the
+decode server), with
 ``convert.params_from_reference`` to carry the reference's weights across.  Every TPU kernel of the reference has its
 Hopper counterpart.
 

@@ -1,1 +1,2 @@
-"""The dense LM family: config, layers, GQA attention and the decoder."""
+"""The decoder-only LM families: config, layers, GQA and MLA attention, the
+MoE FFN and the decoder."""

@@ -1,13 +1,13 @@
-"""GQA attention (+ sliding window, qk-norm, logit softcap), the part of
-``repro.models.attention`` that the dense family runs.
+"""GQA attention (+ sliding window, qk-norm, logit softcap) and MLA, the
+parts of ``repro.models.attention`` that the decoder-only families run.
 
 Prefill path: full-sequence causal attention, through the flash kernel
 where the reference takes its Pallas kernel, else exact chunked attention in
 plain torch ops.  Decode path: one query token against a ring-buffer KV
 cache, updated in place (the reference returns a new cache; here the same
-dict comes back with its slot written).  MLA, cross-attention and
-bidirectional attention are not ported yet (ROADMAP queue 1 items 13.2 and
-13.4).
+dict comes back with its slot written).  MLA caches the compressed KV and
+the rope key in a linear cache.  Cross-attention and bidirectional
+attention are not ported yet (ROADMAP queue 1 item 13.4).
 """
 from __future__ import annotations
 
@@ -179,3 +179,99 @@ def decode_gqa(p: GQA, cfg, x, cache, pos: int, window=None):
     out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
                 cfg.attn_logit_softcap)
     return _out(p, out, x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV, rope/nope split
+
+class MLA(nn.Module):
+    """``wq`` [d, H, qn + qr], ``wkv_down`` [d, r + qr], ``wk_up`` [r, H,
+    qn], ``wv_up`` [r, H, vd], ``wo`` [H, vd, d] and ``kv_norm`` [r]."""
+
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        d, h = cfg.d_model, cfg.num_heads
+        r, qr = cfg.kv_lora_rank, cfg.qk_rope_dim
+        qn, vd = cfg.qk_nope_dim, cfg.v_head_dim
+        dt = dtype_of(cfg.param_dtype)
+        self.wq = dense((d, h, qn + qr), gen, dt, device)
+        self.wkv_down = dense((d, r + qr), gen, dt, device)
+        self.wk_up = dense((r, h, qn), gen, dt, device)
+        self.wv_up = dense((r, h, vd), gen, dt, device)
+        self.wo = dense((h, vd, d), gen, dt, device, fan_in=h * vd)
+        self.kv_norm = const((r,), dt, device)
+
+
+def init_mla(cfg, gen, device) -> MLA:
+    return MLA(cfg, gen, device)
+
+
+def _mla_qc(p: MLA, cfg, x, positions):
+    """The queries' nope and rope parts [B,S,H,qn], [B,S,H,qr], and the
+    compressed KV [B,S,r] and shared rope key [B,S,qr] of ``x``."""
+    r, qn = cfg.kv_lora_rank, cfg.qk_nope_dim
+    q = _proj(x, p.wq)
+    q_nope, q_rope = q[..., :qn], q[..., qn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    down = x @ p.wkv_down.to(x.dtype)                     # [B,S,r+qr]
+    c_kv = rms_norm(down[..., :r], p.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope(down[..., None, r:], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p: MLA, cfg, q_nope, q_rope, c_kv, k_rope, mask):
+    """Absorbed-weight MLA attention: scores in the compressed space, the
+    softmax in f32 and its weights back in the activations' type."""
+    dt = q_nope.dtype
+    # absorb wk_up into the query: q_c [B,S,H,r]
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p.wk_up.to(dt))
+    scores = (torch.einsum("bshr,btr->bhst", q_c, c_kv)
+              + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
+    scores = scores / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    ctx = torch.einsum("bhst,btr->bshr", w, c_kv)          # compressed context
+    out = torch.einsum("bshr,rhv->bshv", ctx, p.wv_up.to(dt))
+    return _out(p, out, dt)
+
+
+def apply_mla(p: MLA, cfg, x, positions, qchunk: int = QCHUNK):
+    """Causal MLA over the whole sequence, over query blocks of ``qchunk``
+    rows (one block when S <= qchunk or S % qchunk)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
+    s = x.shape[1]
+    j_idx = torch.arange(s, device=x.device)
+    if s <= qchunk or s % qchunk != 0:
+        mask = (j_idx[None, :] <= j_idx[:, None])[None, None]
+        return _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, mask)
+    outs = []
+    for start in range(0, s, qchunk):
+        i_idx = start + torch.arange(qchunk, device=x.device)
+        mask = (j_idx[None, :] <= i_idx[:, None])[None, None]
+        blk = slice(start, start + qchunk)
+        outs.append(_mla_attend(p, cfg, q_nope[:, blk], q_rope[:, blk], c_kv,
+                                k_rope, mask))
+    return torch.cat(outs, dim=1)
+
+
+def init_mla_cache(cfg, batch, max_len, dtype, device="cuda"):
+    """A linear cache of the compressed KV and the rope key."""
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def decode_mla(p: MLA, cfg, x, cache, pos: int):
+    """x: [B,1,d]; pos: the current position (an int). Returns (out, cache),
+    the cache's position ``pos`` written in place."""
+    pos = int(pos)
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
+    cache["c_kv"][:, pos] = c_kv[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, pos] = k_rope[:, 0].to(cache["k_rope"].dtype)
+    t = cache["c_kv"].shape[1]
+    mask = (torch.arange(t, device=x.device) <= pos)[None, None, None]
+    y = _mla_attend(p, cfg, q_nope, q_rope, cache["c_kv"].to(x.dtype),
+                    cache["k_rope"].to(x.dtype), mask)
+    return y, cache

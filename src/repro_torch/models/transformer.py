@@ -1,5 +1,5 @@
-"""Model assembly for the dense family: prefill and decode paths (port of
-``repro.models.transformer``).
+"""Model assembly for the decoder-only families (dense, MoE, MLA): prefill
+and decode paths (port of ``repro.models.transformer``).
 
 The reference splits the decoder into ``prefix`` layers, a region of
 identical groups of ``cfg.scan_group`` layers run by ``lax.scan`` over
@@ -9,7 +9,10 @@ remat has no meaning at inference.  Inside a scanned group the reference
 passes layer index ``base + j`` (j the position in the group) to every
 group, not the layer's absolute index, so ``layer_kind`` and
 ``layer_window`` of scanned layers follow ``base + j``: :func:`layer_indices`
-gives that index for each layer, and the port uses it the same way.
+gives that index for each layer, and the port uses it the same way.  A layer
+attends with MLA where ``cfg.mla``, else with GQA, and runs the MoE FFN where
+``cfg.layer_is_moe`` of its index, else the dense MLP (deepseek's leading
+dense layer).
 
 Families the port does not cover yet raise ``NotImplementedError`` naming
 their ROADMAP item.
@@ -22,6 +25,7 @@ from torch import nn
 from repro_torch.kernels.flash_attention import flash_gqa
 
 from . import attention as attn
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import (MLP, Embedding, Unembed, apply_mlp, const, dtype_of,
                      embed_tokens, rms_norm, unembed)
@@ -29,14 +33,6 @@ from .layers import (MLP, Embedding, Unembed, apply_mlp, const, dtype_of,
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a family or feature the port does not run yet."""
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP queue 1 "
-            f"item 13.2)")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue 1 "
-            f"item 13.1)")
     if cfg.family in ("ssm", "hybrid") or cfg.ssm_state:
         raise NotImplementedError(
             f"{cfg.name}: SSM and hybrid layers are not ported yet (ROADMAP "
@@ -51,19 +47,37 @@ def check_supported(cfg: ModelConfig) -> None:
 # Single layer
 
 class Layer(nn.Module):
-    def __init__(self, cfg: ModelConfig, gen, device):
+    """``ln1``, ``attn`` (MLA or GQA) and, where the layer has an FFN,
+    ``ln2`` with ``moe`` or ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, idx: int, gen, device):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
         self.ln1 = const((cfg.d_model,), dt, device)
-        self.attn = attn.init_gqa(cfg, gen, device)
-        if cfg.d_ff > 0:
+        self.attn = (attn.init_mla(cfg, gen, device) if cfg.mla
+                     else attn.init_gqa(cfg, gen, device))
+        if cfg.layer_is_moe(idx):
+            self.ln2 = const((cfg.d_model,), dt, device)
+            self.moe = moe_mod.init_moe(cfg, gen, device)
+        elif cfg.d_ff > 0:
             self.ln2 = const((cfg.d_model,), dt, device)
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, gen, dt, device)
 
 
 def init_layer(cfg: ModelConfig, idx: int, gen, device) -> Layer:
-    """Layer ``idx``'s parameters (every dense layer has the same shapes)."""
-    return Layer(cfg, gen, device)
+    """Layer ``idx``'s parameters (``idx`` as :func:`layer_indices` gives
+    it)."""
+    return Layer(cfg, idx, gen, device)
+
+
+def _ffn(p: Layer, cfg: ModelConfig, x):
+    if hasattr(p, "moe"):
+        h = rms_norm(x, p.ln2, cfg.norm_eps)
+        return x + moe_mod.apply_moe(p.moe, cfg, h)
+    if hasattr(p, "mlp"):
+        h = rms_norm(x, p.ln2, cfg.norm_eps)
+        return x + apply_mlp(p.mlp, h, cfg.mlp_act)
+    return x
 
 
 def apply_layer(p: Layer, cfg: ModelConfig, idx: int, x, positions,
@@ -71,30 +85,30 @@ def apply_layer(p: Layer, cfg: ModelConfig, idx: int, x, positions,
     # shard_act(x, "hidden") and residual_barrier are the identity outside
     # an activation_sharding context, and a single-device run is outside one
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    h = attn.apply_gqa(p.attn, cfg, h, positions,
-                       window=cfg.layer_window(idx), flash=flash)
-    x = x + h
-    if hasattr(p, "mlp"):
-        h = rms_norm(x, p.ln2, cfg.norm_eps)
-        x = x + apply_mlp(p.mlp, h, cfg.mlp_act)
-    return x
+    if cfg.mla:
+        h = attn.apply_mla(p.attn, cfg, h, positions)
+    else:
+        h = attn.apply_gqa(p.attn, cfg, h, positions,
+                           window=cfg.layer_window(idx), flash=flash)
+    return _ffn(p, cfg, x + h)
 
 
 def init_layer_cache(cfg: ModelConfig, idx: int, batch, max_len, dtype,
                      device="cuda"):
+    if cfg.mla:
+        return attn.init_mla_cache(cfg, batch, max_len, dtype, device=device)
     return attn.init_gqa_cache(cfg, batch, max_len, dtype,
                                window=cfg.layer_window(idx), device=device)
 
 
 def decode_layer(p: Layer, cfg: ModelConfig, idx: int, x, cache, pos):
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    h, cache = attn.decode_gqa(p.attn, cfg, h, cache, pos,
-                               window=cfg.layer_window(idx))
-    x = x + h
-    if hasattr(p, "mlp"):
-        h = rms_norm(x, p.ln2, cfg.norm_eps)
-        x = x + apply_mlp(p.mlp, h, cfg.mlp_act)
-    return x, cache
+    if cfg.mla:
+        h, cache = attn.decode_mla(p.attn, cfg, h, cache, pos)
+    else:
+        h, cache = attn.decode_gqa(p.attn, cfg, h, cache, pos,
+                                   window=cfg.layer_window(idx))
+    return _ffn(p, cfg, x + h), cache
 
 
 # ---------------------------------------------------------------------------
@@ -172,8 +186,9 @@ def logits_from_hidden(params: Model, cfg: ModelConfig, hidden):
 
 def init_cache(cfg: ModelConfig, batch, max_len, dtype,
                device="cuda") -> list:
-    """One ``{"k", "v"}`` ring buffer per layer, in layer order (the
-    reference stacks the scanned groups' caches on a leading axis)."""
+    """One cache per layer, in layer order: a ``{"k", "v"}`` ring buffer,
+    or MLA's linear ``{"c_kv", "k_rope"}`` (the reference stacks the scanned
+    groups' caches on a leading axis)."""
     check_supported(cfg)
     return [init_layer_cache(cfg, i, batch, max_len, dtype, device)
             for i in layer_indices(cfg)]

@@ -901,6 +901,135 @@ def test_cuda_prefill_step_launches_flash_per_layer(cuda):
 
 
 # --------------------------------------------------------------------------
+# MoE and MLA serving: plain products on the card, no kernel of the port
+# --------------------------------------------------------------------------
+
+# f32 products on the card and on the CPU in other orders (TF32 stays off,
+# PyTorch's default), over values of order 1
+_MOE_TOL = 1e-5
+
+
+def _moe_module(cfg, device):
+    from repro_torch.models import moe as M
+    return M.MoE(cfg, torch.Generator(device=device).manual_seed(0), device)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_bitwise_run_to_run_and_against_cpu(cuda):
+    """deepseek's smoke MoE layer (shared and routed experts) at capacity
+    factor 1, which drops assignments: two calls on the card bitwise
+    equal (the combine adds in one fixed order, no atomics), and the same
+    call on the CPU with the same weights within f32's reach."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b", smoke=True),
+                              moe_capacity=1.0)
+    p = _moe_module(cfg, cuda)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 64, cfg.d_model)).astype(np.float32) * 0.5).to(cuda)
+    ops.reset_counts()
+    a = M.apply_moe(p, cfg, x)
+    b = M.apply_moe(p, cfg, x)
+    assert set(ops.launch_counts().values()) == {0}
+    assert torch.equal(a, b)
+    t = x.shape[0] * x.shape[1]
+    cap = M.capacity(t, cfg.top_k, cfg.n_experts, cfg.moe_capacity)
+    _, idx = M.route(p, cfg, x.reshape(t, -1))
+    keep = M._dispatch(x.reshape(t, -1), idx, 1, cfg.n_experts, cap)[2]
+    assert 0 < int(keep.sum()) < keep.numel()
+    p_cpu = M.MoE(cfg, None, "meta")
+    p_cpu.load_state_dict({k: v.cpu() for k, v in p.state_dict().items()},
+                          assign=True)
+    want = M.apply_moe(p_cpu, cfg, x.cpu())
+    torch.testing.assert_close(a.cpu(), want, atol=_MOE_TOL, rtol=_MOE_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_decode_dispatch_needs_no_host_sync(cuda):
+    """A decode step's MoE call, 4 tokens at capacity 8, under
+    ``set_sync_debug_mode("error")``: routing, dispatch, experts and
+    combine queue without one host synchronisation."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b", smoke=True),
+                              moe_capacity=1.25, dtype="bfloat16")
+    assert M.capacity(4, cfg.top_k, cfg.n_experts, 1.25) == 8
+    p = _moe_module(cfg, cuda)
+    x = torch.randn(4, 1, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(5),
+                    dtype=torch.bfloat16)
+    M.apply_moe(p, cfg, x)                  # first calls may sync to load
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = M.apply_moe(p, cfg, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_mla_against_cpu(cuda):
+    """deepseek's smoke MLA decoded step by step on the card and on the
+    CPU with the same weights: outputs and caches within f32's reach."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    cfg = get_config("deepseek-v2-lite-16b", smoke=True)
+    p = A.MLA(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    p_cpu = A.MLA(cfg, None, "meta")
+    p_cpu.load_state_dict({k: v.cpu() for k, v in p.state_dict().items()},
+                          assign=True)
+    b, n = 2, 12
+    xs = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (b, n, cfg.d_model)).astype(np.float32) * 0.5)
+    cache = A.init_mla_cache(cfg, b, n + 4, torch.float32, device=cuda)
+    cache_cpu = A.init_mla_cache(cfg, b, n + 4, torch.float32, device="cpu")
+    for pos in range(n):
+        got, cache = A.decode_mla(p, cfg, xs[:, pos:pos + 1].to(cuda), cache,
+                                  pos)
+        want, cache_cpu = A.decode_mla(p_cpu, cfg, xs[:, pos:pos + 1],
+                                       cache_cpu, pos)
+        torch.testing.assert_close(got.cpu(), want, atol=_MOE_TOL,
+                                   rtol=_MOE_TOL)
+    for key in cache:
+        torch.testing.assert_close(cache[key].cpu(), cache_cpu[key],
+                                   atol=_MOE_TOL, rtol=_MOE_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_dbrx_prefill_launches_flash_per_layer(cuda):
+    """dbrx's smoke model (GQA ahead of routed experts) in bf16 at S = 128,
+    head_dim 64: one tensor-core flash launch per layer, and no other
+    kernel of the port."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("dbrx-132b", smoke=True),
+                              head_dim=64, dtype="bfloat16",
+                              use_flash_attention=True)
+    params = T.init_model(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (2, 128))).to(cuda)
+    repro_torch.reset_counts()
+    got = make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert repro_torch.launch_counts() == {
+        **dict.fromkeys(repro_torch.launch_counts(), 0),
+        "flash_attention": cfg.num_layers}
+    assert ops.flash_variant_counts() == {"tensor_core": cfg.num_layers,
+                                          "ffma": 0}
+    assert torch.isfinite(got[:, :cfg.vocab]).all()
+
+
+# --------------------------------------------------------------------------
 # the multi-device executor, four logical devices on one card
 # --------------------------------------------------------------------------
 
