@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Readings behind ``chip_smoke.py``'s flash and logit bounds, over seeds.
 
-    python3 benchmarks/torch_lm_bounds.py [--seeds 0 1 2] [--moe]
+    python3 benchmarks/torch_lm_bounds.py [--seeds 0 1 2] [--moe | --ssm
+                                           --encdec]
 
 Runs ``chip_smoke.py``'s flash checks (every case, each output row against
 its allowance, the dropped-KV-tile and zeroed-output controls, and each
@@ -13,10 +14,18 @@ reject) once per seed; with ``--moe`` its MoE and MLA phase instead
 against the decode replay at a dropless capacity with the controls each
 must reject, dbrx's flash prefill against the plain attention with its two
 faults, and deepseek's first MoE layer against the plain mix with its
-capacity control).  A failed requirement is logged, not raised, so
+capacity control); with ``--ssm`` its SSM and hybrid phase (mamba2-130m
+whole, jamba-1.5-large-398b cut to two layers) and with ``--encdec`` its
+encoder-decoder and frontend phase (seamless-m4t-large-v2 whole,
+llava-next-34b cut to 16 layers): each model's replay at every position of
+its prompt with its controls (the SSM models' in f32, as the script
+holds them, the others in bf16), and the same replay logged in the other
+type;
+seamless's and llava's flash prefill against the plain attention with its
+faults.  A failed requirement is logged, not raised, so
 every seed's reading is kept.  Needs a CUDA device; writes
 ``chiprun_out/torch_lm_bounds.json`` (``torch_moe_bounds.json`` with
-``--moe``).
+``--moe``, ``torch_ssm_encdec_bounds.json`` with ``--ssm``/``--encdec``).
 """
 from __future__ import annotations
 
@@ -35,6 +44,11 @@ def main() -> int:
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     ap.add_argument("--moe", action="store_true",
                     help="read the MoE and MLA phase instead")
+    ap.add_argument("--ssm", action="store_true",
+                    help="read the SSM and hybrid phase instead")
+    ap.add_argument("--encdec", action="store_true",
+                    help="read the encoder-decoder and frontend phase "
+                    "instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_lm_bounds: needs a CUDA device", file=sys.stderr)
@@ -48,6 +62,8 @@ def main() -> int:
     out = {"card": cs.card_line()}
     if args.moe:
         return moe_bounds(cs, dev, args.seeds, out)
+    if args.ssm or args.encdec:
+        return family_bounds(cs, dev, args.seeds, out, args.ssm, args.encdec)
     for seed in args.seeds:
         g = torch.Generator(device=dev).manual_seed(seed)
         out[f"seed {seed}"] = {"flash": cs.flash_checks(dev, g),
@@ -127,6 +143,50 @@ def moe_bounds(cs, dev, seeds, out) -> int:
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "torch_moe_bounds.json").write_text(json.dumps(out, indent=1))
+    cs.log(out["card"])
+    return 0
+
+
+def family_bounds(cs, dev, seeds, out, ssm: bool, encdec: bool) -> int:
+    rows = {}
+    for seed in seeds:
+        run = {}
+        if ssm:
+            run.update(cs.ssm_hybrid_serving(dev, seed, out["card"],
+                                             logged_dtype="float32"))
+            torch.cuda.empty_cache()
+        if encdec:
+            run.update(cs.encdec_frontend_serving(dev, seed, out["card"],
+                                                  logged_dtype="float32"))
+            torch.cuda.empty_cache()
+        run.pop("seconds")
+        run.pop("card")
+        out[f"seed {seed}"] = run
+        rows[seed] = {}
+        for name, m in run.items():
+            row = {
+                "replay_dtype": m["replay"]["dtype"],
+                "replay": m["replay"]["rel_diff"],
+                "replay_argmax_agree": [m["replay"]["argmax_agree"],
+                                        m["replay"]["rows"]],
+                "replay_controls": {k: c["rel_diff"] for k, c in
+                                    m["replay"]["controls"].items()},
+                "replay_logged": {dt: [r["rel_diff"], r["argmax_agree"]]
+                                  for dt, r in m["replay_logged"].items()},
+                "prefill_s": m["prefill_s"],
+                "prefill_peak_gb": m["prefill_peak_gb"],
+                "decode_tokens_per_s": m["decode_tokens_per_s"],
+                "peak_gb": m["peak_gb"]}
+            if "prefill_vs_plain_rel" in m:
+                row["prefill_vs_plain"] = m["prefill_vs_plain_rel"]
+                row["prefill_controls"] = m["prefill_controls"]
+            rows[seed][name] = row
+        cs.log(f"seed {seed}: " + json.dumps(rows[seed]))
+    out["summary"] = rows
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    (outdir / "torch_ssm_encdec_bounds.json").write_text(
+        json.dumps(out, indent=1))
     cs.log(out["card"])
     return 0
 

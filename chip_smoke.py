@@ -135,6 +135,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    fail), and the replay in bf16 with the controls the routed experts
    zeroed and the flash kernel without its causal mask; the phase's
    seconds;
+10c. SSM and hybrid serving, each model with seeded f32 parameters whose
+   count must be the reference's, a timed 4 x 2048 prefill (no kernel of
+   the port launched) with its peak memory, the logits at every position
+   of a 512-token prompt's prefill (two SSD chunks) against its decode
+   replay in f32 activations under a bound (the bf16 replay logged: it
+   parts too far, see the replay bounds), controls that must fail it,
+   greedy tokens through ``decode_tokens`` and six decode windows:
+   mamba2-130m whole
+   (129,690,048 parameters; controls: the inter-chunk term zeroed,
+   ``d_skip`` dropped, the decode conv window left unshifted), then
+   jamba-1.5-large-398b at published widths cut to 2 of 72 layers (SSM
+   with the dense MLP, SSM with the 16-expert top-2 MoE; 12,155,465,728
+   parameters, 48.6 GB; 8 layers, the least that reach its attention
+   layer, would hold 180.6 GB), its replay dropless (control: the routed
+   experts zeroed); the phase's seconds;
+10d. encoder-decoder and frontend serving, with the flash flag on: the
+   same steps, where the prefill is also held against the plain attention
+   with the flash faults, the replay in bf16 on 128-token prompts:
+   seamless-m4t-large-v2
+   whole (24 encoder and 24 decoder layers; 2,038,556,672 parameters) with
+   4 x 1024 seeded encoder frames, a 4 x 1024 prefill with 24 tensor-core
+   flash launches (the encoder and cross-attention take the chunked
+   path), decode cross-attending to ``enc_out`` (controls: the
+   cross-attention dropped at decode, the encoder's attention made
+   causal); llava-next-34b at published widths cut to 16 of 60 layers
+   (9,865,239,552 parameters, 39.5 GB; 60 hold 137.6 GB) with 576 seeded
+   frontend embeddings over a 4 x 2048 prefill, 16 tensor-core flash
+   launches at 56/8 heads (controls: the frontend embeddings ignored,
+   the flash kernel without its causal mask); the phase's seconds;
 11. tuner and service: ``repro_torch.tune.calibrate`` on the card at the
    main path's tile size in f32 (every one of the five Cholesky kernels
    launched; ``mem_bytes`` the card's total memory; each per-class rate
@@ -173,14 +202,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    output in ``chiprun_out/examples/``);
 13. the kernels line (JSON; each kernel also with its launches in config
    A, in the disk tier, in calibration, in the tuned factor, in the
-   served pair and through the shim; flash attention also with dbrx's
-   prefill's) and the last line,
+   served pair and through the shim; flash attention also with dbrx's,
+   seamless's and llava's prefill's), each phase's seconds, the script's
+   wall time, and the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
 ``chiprun_out/chip_smoke.json`` as well.  ``--n``, ``--mxp-n``, ``--geo-n``,
 ``--spill-n`` and ``--tb`` cut the Cholesky sizes for a quick run; the
-models run at full width, and at full depth but for dbrx's.
+models run at full width, and at full depth but for dbrx's, jamba's and
+llava's.
 """
 from __future__ import annotations
 
@@ -2367,8 +2398,9 @@ def flash_faults() -> dict:
 
 
 def timed_prefill(cfg, params, tokens, want_launches: dict,
-                  want_variants: dict, tag: str):
-    """Two prefill steps of ``tokens``, each timed and its launches held
+                  want_variants: dict, tag: str, extra: dict | None = None):
+    """Two prefill steps of ``tokens`` (and the batch's ``extra`` inputs:
+    frontend embeddings, encoder frames), each timed and its launches held
     to ``want_launches`` (every kernel of the port) and its flash variants
     to ``want_variants``.  Returns (logits, seconds, launches, variants)."""
     import repro_torch
@@ -2380,7 +2412,7 @@ def timed_prefill(cfg, params, tokens, want_launches: dict,
         repro_torch.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": tokens})
+        logits = prefill(params, {"tokens": tokens, **(extra or {})})
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launches = repro_torch.launch_counts()
@@ -2400,10 +2432,10 @@ def timed_prefill(cfg, params, tokens, want_launches: dict,
 
 
 def decode_windows(params, cfg, batch: int, prompt_len: int, gen_len: int,
-                   tok, windows: int) -> list:
+                   tok, windows: int, enc_out=None) -> list:
     """Decode tokens/s of ``windows`` windows of ``gen_len - 1`` greedy
     steps from ``tok`` at positions ``prompt_len`` on, through the serve
-    step on a fresh cache."""
+    step on a fresh cache (cross-attending to ``enc_out`` if given)."""
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import dtype_of
@@ -2415,7 +2447,7 @@ def decode_windows(params, cfg, batch: int, prompt_len: int, gen_len: int,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for pos in range(prompt_len, prompt_len + gen_len - 1):
-            step_logits, cache = serve(params, cache, tok, pos)
+            step_logits, cache = serve(params, cache, tok, pos, enc_out)
             tok = torch.argmax(step_logits[..., :cfg.vocab], dim=-1)
         torch.cuda.synchronize()
         out.append(batch * (gen_len - 1) / (time.perf_counter() - t0))
@@ -2747,6 +2779,36 @@ def moe_replay(cfg, params, prompts, gen_len: int, controls: dict,
     return out, tokens
 
 
+def prefill_vs_plain(cfg, params, batch: dict, logits, tag: str,
+                     controls: dict | None = None) -> dict:
+    """A flash prefill step's ``logits`` on ``batch`` against the same step
+    with the plain attention, within PREFILL_REL_BOUND; the flash faults
+    and ``controls`` (name -> (params, batch) -> logits) must fail that
+    check."""
+    from repro_torch.kernels.flash_attention import flash_gqa_ref
+    from repro_torch.launch.steps import make_prefill_step
+    plain = make_prefill_step(cfg, flash=flash_gqa_ref)(params, batch)
+    diff, scale, same = _logit_diff(logits, plain, cfg.vocab)
+    log(f"{tag}: {cfg.name} prefill with flash_gqa_ref: max|flash - plain| "
+        f"= {diff / scale:.4f} x max|logit| {scale:.3f} (bound "
+        f"{PREFILL_REL_BOUND:.4f}); top-1 agrees in {same}/{logits.shape[0]}")
+    require(diff <= PREFILL_REL_BOUND * scale,
+            f"{cfg.name} prefill vs plain {diff}")
+    out = {"prefill_vs_plain_rel": diff / scale, "prefill_controls": {}}
+    faults = {name: (lambda p, b, f=attn: make_prefill_step(cfg, flash=f)(
+        p, b)) for name, attn in flash_faults().items()}
+    for name, run in {**faults, **(controls or {})}.items():
+        bad = run(params, batch)
+        cd = _logit_diff(bad, plain, cfg.vocab)[0]
+        out["prefill_controls"][name] = cd / scale
+        log(f"{tag}: {cfg.name} control {name} vs plain: {cd / scale:.4f} x "
+            f"max|logit| (must exceed {PREFILL_REL_BOUND:.4f})")
+        require(cd > PREFILL_REL_BOUND * scale,
+                f"{cfg.name} prefill check passes the {name} control")
+        del bad
+    return out
+
+
 def serve_moe_model(cfg, dev, seed: int, controls: dict,
                     replay_bound: float, replay_dtype: str | None = None,
                     mix_check: bool = False) -> dict:
@@ -2758,7 +2820,7 @@ def serve_moe_model(cfg, dev, seed: int, controls: dict,
     import dataclasses
 
     import repro_torch
-    from repro_torch.kernels.flash_attention import flash_gqa, flash_gqa_ref
+    from repro_torch.kernels.flash_attention import flash_gqa
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import transformer as T
     n_flash = cfg.num_layers if cfg.use_flash_attention and not cfg.mla else 0
@@ -2802,27 +2864,8 @@ def serve_moe_model(cfg, dev, seed: int, controls: dict,
                 "prefill_flash_variants": variants,
                 "prefill_drop_share": share, "prefill_capacity_slots": cap})
     if n_flash:
-        plain = make_prefill_step(cfg, flash=flash_gqa_ref)(
-            params, {"tokens": tokens})
-        diff, scale, same = _logit_diff(logits, plain, cfg.vocab)
-        log(f"moe: {cfg.name} prefill with flash_gqa_ref: max|flash - plain| "
-            f"= {diff / scale:.4f} x max|logit| {scale:.3f} (bound "
-            f"{PREFILL_REL_BOUND:.4f}); top-1 agrees in {same}/{batch}")
-        require(diff <= PREFILL_REL_BOUND * scale,
-                f"{cfg.name} prefill vs plain {diff}")
-        out["prefill_vs_plain_rel"] = diff / scale
-        out["prefill_controls"] = {}
-        for name, attn in flash_faults().items():
-            bad = make_prefill_step(cfg, flash=attn)(params,
-                                                     {"tokens": tokens})
-            cd = _logit_diff(bad, plain, cfg.vocab)[0]
-            out["prefill_controls"][name] = cd / scale
-            log(f"moe: {cfg.name} control {name} vs plain: {cd / scale:.4f} "
-                f"x max|logit| (must exceed {PREFILL_REL_BOUND:.4f})")
-            require(cd > PREFILL_REL_BOUND * scale,
-                    f"{cfg.name} prefill check passes the {name} control")
-            del bad
-        del plain
+        out.update(prefill_vs_plain(cfg, params, {"tokens": tokens}, logits,
+                                    "moe"))
     del logits
 
     # a 128-token prompt: the config's capacity beside the dropless one,
@@ -2930,6 +2973,382 @@ def moe_mla_serving(dev, seed: int, card: str) -> dict:
         MOE_REPLAY_REL_BOUND)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"moe: phase 10b [{card}] took {out['seconds']:.1f}s")
+    return out
+
+
+# Phases 10c and 10d, SSM, hybrid, frontend and encoder-decoder serving.
+# mamba2-130m and seamless-m4t-large-v2 at their published widths and
+# depths; jamba-1.5-large-398b at its published widths with JAMBA_LAYERS of
+# its 72 layers (layer 0 SSM with the dense MLP, layer 1 SSM with the
+# 16-expert top-2 MoE): its attention layer is the 8th of each group of 8,
+# and the smallest cut that reaches it, 8 layers, holds 180.6 GB of f32
+# weights (2 hold 48.6 GB); the whole interleave is held at smoke size on
+# the card against the CPU (tests/test_torch_cuda.py).  llava-next-34b at
+# its published widths with LLAVA_LAYERS of its 60 layers (39.5 GB of f32
+# weights; 60 hold 137.6 GB).  The parameter counts are the reference's
+# abstract init's at these depths.
+MAMBA2_PARAMS = 129_690_048
+JAMBA_LAYERS = 2
+JAMBA_PARAMS = 12_155_465_728
+SEAMLESS_PARAMS = 2_038_556_672
+LLAVA_LAYERS = 16
+LLAVA_PARAMS = 9_865_239_552
+SEAMLESS_PREFILL = (4, 1024)     # and 4 x 1024 encoder frames; the
+                                 # others take phase 10b's MOE_PREFILL
+# The replay compares the logits at every position of a prompt's prefill
+# with the decode replay's, step by step.  The SSM prompts are two chunks
+# (512 tokens): with one chunk (256) the inter-chunk term carries no state
+# and its control would have nothing to break.  The attention models'
+# prompts are 128 tokens, as phase 10's.
+SSM_REPLAY_LEN = 512
+ATTN_REPLAY_LEN = 128
+# Bounds on max|logit difference| / max|logit| of the replay, each 3 times
+# the worst sound reading over seeds 0-2 (benchmarks/torch_lm_bounds.py
+# --ssm --encdec, NVIDIA H100 80GB HBM3, 700 W).  seamless and llava in
+# bf16, their served type: 0.0149-0.0167 and 0.0166-0.0195, every control
+# 1.26 or more.  The SSM models in bf16 read 0.238-0.298 (mamba2) and
+# 0.210-0.215 (jamba) against controls from 0.29 (jamba's experts zeroed),
+# which leaves no room for a bound: the SSD scan and the recurrence round
+# bf16 projections of dt, B, C and x in other places, and the state
+# carries each difference on.  The reference does the same: in bf16 its
+# own prefill and replay differ by more than the port's
+# (tests/test_torch_ssm.py::test_bf16_replay_divergence_is_the_references).
+# So the SSM replays are held with f32 activations, where they read
+# 1.10e-4-1.82e-4 (mamba2; controls 0.90 or more) and 2.88e-5-4.34e-5
+# (jamba; its control 0.289 or more), and their bf16 replays are logged.
+MAMBA2_REPLAY_F32_REL_BOUND = 5.5e-4
+JAMBA_REPLAY_F32_REL_BOUND = 1.3e-4
+SEAMLESS_REPLAY_REL_BOUND = 0.050
+LLAVA_REPLAY_REL_BOUND = 0.058
+
+
+def model_inputs(cfg, g, batch: int, dev) -> dict:
+    """Seeded model inputs at the token table's scale (1/sqrt(d)): an
+    encoder-decoder model's ``frontend_tokens`` encoder frames, or a
+    frontend's ``frontend_tokens`` embeddings over the leading positions."""
+    from repro_torch.models.layers import dtype_of
+    if not (cfg.is_encdec or cfg.frontend):
+        return {}
+    x = torch.randn(batch, cfg.frontend_tokens, cfg.d_model, generator=g,
+                    device=dev) * cfg.d_model ** -0.5
+    x = x.to(dtype_of(cfg.dtype))
+    return {"enc_embeds" if cfg.is_encdec else "frontend_embeds": x}
+
+
+def prefill_logits(cfg, params, tokens, extra: dict, flash=None):
+    """Logits at every position of the prefill of ``tokens``."""
+    from repro_torch.kernels.flash_attention import flash_gqa
+    from repro_torch.models import transformer as T
+    h = T.forward(params, cfg, tokens, flash=flash or flash_gqa, **extra)
+    return T.logits_from_hidden(params, cfg, h)
+
+
+def replay_logits(cfg, params, tokens, enc_out=None):
+    """Logits at every position of ``tokens`` replayed through the serve
+    step one token at a time, as ``decode_tokens`` replays a prompt."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import dtype_of
+    b, s = tokens.shape
+    cache = T.init_cache(cfg, b, s, dtype_of(cfg.dtype), tokens.device)
+    serve = make_serve_step(cfg)
+    out = []
+    for pos in range(s):
+        logits, cache = serve(params, cache, tokens[:, pos:pos + 1], pos,
+                              enc_out)
+        out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def replay_check(cfg, params, prompts, enc_embeds, controls: dict,
+                 bound) -> dict:
+    """The logits at every position of ``prompts``' prefill against the
+    decode replay's (an encoder-decoder model's replay cross-attends to the
+    encoder's output of ``enc_embeds``), within ``bound`` (None: logged
+    only).  Each control, (side, context, flash, enc_out), breaks the
+    prefill (side "prefill": under ``context(params)``, with ``flash`` as
+    its attention if not None) or the replay (side "decode": under the
+    context, cross-attending to ``enc_out`` unless it is "same") and must
+    exceed the bound."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import dtype_of
+    extra, enc_out = {}, None
+    if enc_embeds is not None:
+        extra = {"enc_embeds": enc_embeds}
+        enc_out = T.apply_encoder(params, cfg,
+                                  enc_embeds.to(dtype_of(cfg.dtype)))
+    v = cfg.vocab
+    t0 = time.perf_counter()
+    want = replay_logits(cfg, params, prompts, enc_out)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    got = prefill_logits(cfg, params, prompts, extra)
+    diff, scale, same = _logit_diff(got.flatten(0, 1), want.flatten(0, 1), v)
+    rows = got.shape[0] * got.shape[1]
+    log(f"serve: {cfg.name} prefill of a {prompts.shape[1]}-token prompt vs "
+        f"its decode replay at every position, {cfg.dtype}: max|diff| "
+        f"{diff:.4e} = {diff / scale:.4e} x max|logit| {scale:.3f} (bound "
+        f"{bound}); argmax agrees in {same}/{rows} ({replay_s:.2f}s replay)")
+    require(bound is None or diff <= bound * scale,
+            f"{cfg.name} prefill vs replay {diff}")
+    out = {"dtype": cfg.dtype, "rel_diff": diff / scale, "max_logit": scale,
+           "argmax_agree": same, "rows": rows, "bound": bound,
+           "replay_s": replay_s, "controls": {}}
+    for name, (side, ctx, flash, bad_enc) in controls.items():
+        with ctx(params):
+            if side == "prefill":
+                bad = prefill_logits(cfg, params, prompts, extra, flash)
+                cd = _logit_diff(bad.flatten(0, 1), want.flatten(0, 1), v)
+            else:
+                bad = replay_logits(cfg, params, prompts,
+                                    enc_out if bad_enc == "same" else bad_enc)
+                cd = _logit_diff(got.flatten(0, 1), bad.flatten(0, 1), v)
+        out["controls"][name] = {"side": side, "rel_diff": cd[0] / scale,
+                                 "argmax_agree": cd[2]}
+        log(f"serve: {cfg.name} control {name} ({side}): {cd[0] / scale:.4f}"
+            f" x max|logit| (must exceed {bound}); argmax agrees in "
+            f"{cd[2]}/{rows}")
+        require(bound is not None and cd[0] > bound * scale,
+                f"{cfg.name} replay check passes the {name} control")
+        del bad
+    return out
+
+
+def serve_model(cfg, dev, seed: int, want_params: int, prefill: tuple,
+                replay_len: int, controls: dict, replay_bound: float,
+                plain_controls: dict | None = None,
+                replay_dtype: str | None = None,
+                logged_dtype: str | None = None) -> dict:
+    """One model on the card: parameters from ``seed`` (their count held
+    to ``want_params``), the timed prefill (its inputs from
+    ``model_inputs``; where the model attends through the flash kernel,
+    against the same step with the plain attention, with the flash faults
+    and ``plain_controls``, name -> (params, step's batch) -> logits, which
+    must fail that check), the replay check with ``controls`` at a dropless
+    capacity, with ``replay_dtype`` activations if given (the served type's
+    replay, and ``logged_dtype``'s if given, then logged), greedy
+    tokens through ``decode_tokens`` and decode windows."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.launch.serve import decode_tokens
+    from repro_torch.models import transformer as T
+    n_flash = cfg.num_layers if cfg.use_flash_attention else 0
+    want_launches = {**dict.fromkeys(repro_torch.launch_counts(), 0),
+                     "flash_attention": n_flash}
+    want_variants = {"tensor_core": n_flash, "ffma": 0}
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_gb = torch.cuda.memory_allocated(dev) / 1e9
+    kinds = [cfg.layer_kind(i) + ("+moe" if cfg.layer_is_moe(i) else "")
+             for i in params.layer_idx]
+    log(f"serve: {cfg.name} {cfg.num_layers} decoder layers "
+        f"({', '.join(sorted(set(kinds)))}), {cfg.enc_layers} encoder layers, "
+        f"d_model {cfg.d_model}, {n_params:,} parameters ({param_gb:.2f} GB "
+        f"f32) made in {init_s:.2f}s")
+    require(n_params == want_params,
+            f"{cfg.name} parameters {n_params:,} != {want_params:,}")
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "enc_layers": cfg.enc_layers, "params": n_params,
+           "param_gb": param_gb, "init_s": init_s, "layer_kinds": kinds}
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    batch, seq = prefill
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
+    extra = model_inputs(cfg, g, batch, dev)
+    logits, prefill_s, launches, variants = timed_prefill(
+        cfg, params, tokens, want_launches, want_variants, cfg.name, extra)
+    prefill_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"serve: {cfg.name} prefill {batch}x{seq}"
+        f"{''.join(f' + {k} {tuple(x.shape)}' for k, x in extra.items())} in "
+        f"{prefill_s[0]:.3f}s then {prefill_s[1]:.3f}s "
+        f"({batch * seq / prefill_s[1]:.0f} tokens/s); launches {launches}; "
+        f"peak device memory {prefill_peak:.2f} GB")
+    out.update({"prefill_batch": batch, "prefill_seq": seq,
+                "prefill_inputs": {k: list(x.shape) for k, x in extra.items()},
+                "prefill_s": prefill_s,
+                "prefill_tokens_per_s": batch * seq / prefill_s[1],
+                "prefill_launches": launches,
+                "prefill_flash_variants": variants,
+                "prefill_peak_gb": prefill_peak})
+    if n_flash:
+        out.update(prefill_vs_plain(cfg, params, {"tokens": tokens, **extra},
+                                    logits, "serve", plain_controls))
+    del logits
+
+    # the replay: every position of a prompt, at a dropless capacity
+    prompts = torch.randint(0, cfg.vocab, (batch, replay_len), generator=g,
+                            device=dev)
+    frames = model_inputs(cfg, g, batch, dev).get("enc_embeds")
+    # (capacity factor E / k: an expert's slots equal the tokens)
+    dropless = (dataclasses.replace(cfg, moe_capacity=cfg.n_experts
+                                    / cfg.top_k) if cfg.is_moe else cfg)
+    checked = replay_dtype or cfg.dtype
+    out["replay"] = replay_check(
+        dataclasses.replace(dropless, dtype=checked), params, prompts, frames,
+        controls, replay_bound)
+    out["replay_logged"] = {
+        dt: replay_check(dataclasses.replace(dropless, dtype=dt), params,
+                         prompts, frames, {}, None)
+        for dt in dict.fromkeys((cfg.dtype, logged_dtype))
+        if dt is not None and dt != checked}
+
+    # greedy tokens and decode windows at the config's capacity
+    enc_out = (None if frames is None
+               else T.apply_encoder(params, cfg, frames))
+    prompt_len, gen_len = ATTN_REPLAY_LEN, 16
+    repro_torch.reset_counts()
+    gen_tokens, first_tok_s, _ = decode_tokens(
+        params, cfg, prompts[:, :prompt_len], gen_len, enc_out)
+    require(gen_tokens.shape == (batch, gen_len)
+            and int(gen_tokens.min()) >= 0
+            and int(gen_tokens.max()) < cfg.vocab,
+            f"{cfg.name} generated tokens {gen_tokens.shape}")
+    tok = torch.as_tensor(gen_tokens[:, -1:], device=dev)
+    windows = [first_tok_s] + decode_windows(
+        params, cfg, batch, prompt_len, gen_len, tok, DECODE_WINDOWS, enc_out)
+    decode_launches = repro_torch.launch_counts()
+    require(set(decode_launches.values()) == {0},
+            f"{cfg.name} decode launched {decode_launches}")
+    median = statistics.median(windows)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"serve: {cfg.name} decode {batch} x ({prompt_len} + {gen_len})"
+        f"{' with enc_out' if enc_out is not None else ''} over "
+        f"{len(windows)} windows of {gen_len - 1} steps: median "
+        f"{median:.1f} tokens/s ({batch / median * 1e3:.1f} ms a step), min "
+        f"{min(windows):.1f}, max {max(windows):.1f}; peak device memory "
+        f"{peak_gb:.2f} GB")
+    out.update({"serve_prompt_len": prompt_len, "serve_gen_len": gen_len,
+                "decode_tokens_per_s": median,
+                "decode_window_tokens_per_s": windows,
+                "decode_step_ms": batch / median * 1e3, "peak_gb": peak_gb,
+                "seconds": time.perf_counter() - t_model})
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def zeroed(tensors):
+    """``tensors`` zeroed for the block's duration (a control's fault)."""
+    saved = [t.clone() for t in tensors]
+    for t in tensors:
+        t.zero_()
+    try:
+        yield
+    finally:
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+
+
+def _no_fault(params):
+    return contextlib.nullcontext()
+
+
+def ssm_hybrid_serving(dev, seed: int, card: str,
+                       logged_dtype: str | None = None) -> dict:
+    """Phase 10c: mamba2-130m whole, then jamba-1.5-large-398b cut to
+    JAMBA_LAYERS layers, each served on the card with its checks (and its
+    replay logged in ``logged_dtype`` too, if given)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import ssm as S
+    t_phase = time.perf_counter()
+    orig_decode = S.decode_ssm
+
+    def no_inter_chunk(params):
+        return swapped(S, "_inter_chunk", lambda acum, cc, prev: cc.new_zeros(
+            cc.shape[:3] + prev.shape[2:4]))
+
+    def no_d_skip(params):
+        return zeroed([lp.ssm.d_skip for lp in params.layers])
+
+    def unshifted_window(params):
+        def decode(p, cfg, x, cache):
+            conv = cache["conv"].clone()
+            y, cache = orig_decode(p, cfg, x, cache)
+            cache["conv"].copy_(conv)
+            return y, cache
+        return swapped(S, "decode_ssm", decode)
+
+    def no_routed(params):
+        return swapped(M, "_expert_ffn", lambda p, h, act: torch.zeros_like(h))
+
+    out = {"card": card, "mamba2": serve_model(
+        get_config("mamba2-130m"), dev, seed, MAMBA2_PARAMS, MOE_PREFILL,
+        SSM_REPLAY_LEN, {
+            "inter-chunk term zeroed": ("prefill", no_inter_chunk, None,
+                                        "same"),
+            "d_skip dropped": ("prefill", no_d_skip, None, "same"),
+            "decode conv window unshifted": ("decode", unshifted_window,
+                                             None, "same")},
+        MAMBA2_REPLAY_F32_REL_BOUND, replay_dtype="float32",
+        logged_dtype=logged_dtype)}
+    jamba = dataclasses.replace(get_config("jamba-1-5-large-398b"),
+                                num_layers=JAMBA_LAYERS)
+    out["jamba"] = serve_model(
+        jamba, dev, seed, JAMBA_PARAMS, MOE_PREFILL, SSM_REPLAY_LEN, {
+            "routed experts zeroed": ("prefill", no_routed, None, "same")},
+        JAMBA_REPLAY_F32_REL_BOUND, replay_dtype="float32",
+        logged_dtype=logged_dtype)
+    require(out["jamba"]["layer_kinds"] == ["ssm", "ssm+moe"],
+            f"jamba's layers {out['jamba']['layer_kinds']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serve: phase 10c [{card}] took {out['seconds']:.1f}s")
+    return out
+
+
+def encdec_frontend_serving(dev, seed: int, card: str,
+                            logged_dtype: str | None = None) -> dict:
+    """Phase 10d: seamless-m4t-large-v2 whole, then llava-next-34b cut to
+    LLAVA_LAYERS layers, both with the flash kernel on their decoders'
+    self-attention, each served on the card with its checks (and its
+    replay logged in ``logged_dtype`` too, if given)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention as A
+    t_phase = time.perf_counter()
+
+    def causal_encoder(params):
+        def bidir(p, cfg, x, positions):
+            q, k, v = A._qkv(p, cfg, x, positions)
+            return A._out(p, A._sdpa_chunked(
+                q, k, v, causal=True, softcap=cfg.attn_logit_softcap),
+                x.dtype)
+        return swapped(A, "apply_bidir", bidir)
+
+    seamless = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                                   use_flash_attention=True)
+    out = {"card": card, "seamless": serve_model(
+        seamless, dev, seed, SEAMLESS_PARAMS, SEAMLESS_PREFILL,
+        ATTN_REPLAY_LEN, {
+            "cross-attention dropped at decode": ("decode", _no_fault, None,
+                                                  None),
+            "encoder attention causal": ("prefill", causal_encoder, None,
+                                         "same")},
+        SEAMLESS_REPLAY_REL_BOUND, logged_dtype=logged_dtype)}
+    llava = dataclasses.replace(get_config("llava-next-34b"),
+                                num_layers=LLAVA_LAYERS,
+                                use_flash_attention=True)
+    out["llava"] = serve_model(
+        llava, dev, seed, LLAVA_PARAMS, MOE_PREFILL, ATTN_REPLAY_LEN, {
+            "no causal mask": ("prefill", _no_fault,
+                               flash_faults()["no causal mask"], "same")},
+        LLAVA_REPLAY_REL_BOUND, plain_controls={
+            "frontend embeddings ignored": lambda p, b: make_prefill_step(
+                llava)(p, {"tokens": b["tokens"]})},
+        logged_dtype=logged_dtype)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serve: phase 10d [{card}] took {out['seconds']:.1f}s")
     return out
 
 
@@ -3402,9 +3821,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "a card", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     dev = torch.device("cuda")
+    phase_s = {}
+    last = [t_script]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
 
     card = card_line()
     log(card)                                   # 1. card
@@ -3416,6 +3843,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     log(f"build: {len(out)} sources in {build_s:.1f}s")
+    lap("1-2 card and build")
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     checks = kernel_checks(args.tb, dev, g)     # 3. kernel check
@@ -3423,6 +3851,7 @@ def main() -> int:
     checks.update(syrk_checks(dev, args.seed))
     checks.update(blocked_checks(args.tb, dev, g))
     checks.update(fused_checks(args.tb, dev, g))
+    lap("3 kernel checks")
     a = make_spd(args.n, dev, args.seed)        # 4. main path
     lref = torch.linalg.cholesky(a)
     main = main_path(a, lref, args.tb, dev, args.seed, fuse=False)
@@ -3430,31 +3859,47 @@ def main() -> int:
     log(f"factor n={args.n}: unfused {main['factor_s']:.3f}s, fused "
         f"{fused['factor_s']:.3f}s")
     del a, lref
+    lap("4 main path")
     mxp = mxp_fused(args.mxp_n, args.tb, dev)   # 5. mixed precision
+    lap("5 mixed precision")
     geo_res = geo(args.geo_n, args.tb, dev, args.seed, card)   # 6. geo
+    lap("6 geospatial")
     torch.cuda.empty_cache()                    # 7. multi-device
     md = multidevice(args.n, MD_MXP_N, args.tb, dev, args.seed, card,
                      {"main": main, "fused": fused})
+    lap("7 multi-device")
     torch.cuda.empty_cache()                    # 8. measured trace
     traced, trace_a = trace_phase(args.n, MD_MXP_N, args.tb, dev, args.seed,
                                   card)
+    lap("8 trace")
     torch.cuda.empty_cache()                    # 9. disk tier
     disk = disk_tier(args.spill_n, args.tb, dev, args.seed, card)
+    lap("9 disk tier")
     torch.cuda.empty_cache()                    # 10. LM serving
     log(f"lm: device memory in use before the model "
         f"{torch.cuda.memory_allocated(dev) / 2 ** 20:.0f} MiB")
     checks.update(flash_checks(dev, g))
     lm = lm_serving(dev, args.seed)
+    lap("10 LM serving")
     torch.cuda.empty_cache()                    # 10b. MoE and MLA serving
     moe = moe_mla_serving(dev, args.seed, card)
+    lap("10b MoE and MLA")
+    torch.cuda.empty_cache()                    # 10c. SSM and hybrid
+    ssm = ssm_hybrid_serving(dev, args.seed, card)
+    lap("10c SSM and hybrid")
+    torch.cuda.empty_cache()                    # 10d. enc-dec, frontends
+    encdec = encdec_frontend_serving(dev, args.seed, card)
+    lap("10d encoder-decoder and frontend")
     torch.cuda.empty_cache()                    # 11. tuner and service
     ts = tuner_service(args.n, args.tb, dev, args.seed, card, main, checks,
                        trace_a)
+    lap("11 tuner and service")
     torch.cuda.empty_cache()          # 12. the baseline, shim and examples
     base = baseline(args.n, args.tb, dev, args.seed, card, md)
     torch.cuda.empty_cache()
     shim_res = shim(args.mxp_n, args.tb, dev, args.seed, card)
     ex = examples(card)
+    lap("12 baseline, shim, examples")
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -3467,7 +3912,11 @@ def main() -> int:
                    "geo_f64_mid_ms": geo_res["fused_step_f64_mid"]["ms"]}
         elif name == "flash_attention":
             row = {**checks[f"{name}[prefill]"], "dbrx_prefill_launches":
-                   moe["dbrx"]["prefill_launches"][name]}
+                   moe["dbrx"]["prefill_launches"][name],
+                   "seamless_prefill_launches":
+                   encdec["seamless"]["prefill_launches"][name],
+                   "llava_prefill_launches":
+                   encdec["llava"]["prefill_launches"][name]}
             launches = lm["prefill_launches"][name]
         else:
             row = checks[f"{name}[float32]"]
@@ -3488,7 +3937,8 @@ def main() -> int:
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
                     "split", "device_ms", "library_device_ms", "geometry",
                     "grid", "geo_f64_launches", "geo_f64_mid_ms",
-                    "dbrx_prefill_launches"):
+                    "dbrx_prefill_launches", "seamless_prefill_launches",
+                    "llava_prefill_launches"):
             if key in row:
                 kernels[-1][key] = row[key]
     outdir = ROOT / "chiprun_out"
@@ -3497,8 +3947,13 @@ def main() -> int:
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
          "fused": fused, "mxp": mxp, "geo": geo_res, "multidevice": md,
          "trace": traced, "disk_tier": disk, "lm": lm, "moe": moe,
-         "tuner_service": ts, "baseline": base, "shim": shim_res,
-         "examples": ex, "kernels": kernels}, indent=1))
+         "ssm": ssm, "encdec": encdec, "tuner_service": ts,
+         "baseline": base, "shim": shim_res, "examples": ex,
+         "kernels": kernels, "phase_seconds": phase_s,
+         "wall_s": time.perf_counter() - t_script}, indent=1))
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items()))
+    log(f"chip_smoke: wall time {time.perf_counter() - t_script:.1f}s")
     log(card)
     print(json.dumps({"kernels": kernels}))     # 13. kernels line
     print(json.dumps({"ok": True, "device": {

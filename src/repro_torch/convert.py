@@ -75,7 +75,8 @@ def params_from_reference(tree: dict, cfg, device="cuda") -> Model:
     whose leaves carry a leading ``n_groups`` axis.  Here the layers are
     one list in layer order: the prefix, then group by group the stack's
     j-th layer, then the remainder.  With tied embeddings there is no
-    ``unembed``."""
+    ``unembed``; an encoder-decoder model's ``encoder`` list and
+    ``enc_final_norm`` come across under the same names."""
     _, n_groups, _ = _regions(cfg)
     layers = [_flatten(lp, "", {}) for lp in tree["prefix"]]
     if tree.get("stack") is not None:
@@ -89,6 +90,11 @@ def params_from_reference(tree: dict, cfg, device="cuda") -> Model:
         flat["unembed.out"] = tree["unembed"]["out"]
     for n, layer in enumerate(layers):
         flat.update({f"layers.{n}.{k}": v for k, v in layer.items()})
+    if cfg.is_encdec:
+        for n, lp in enumerate(tree["encoder"]):
+            flat.update({f"encoder.{n}.{k}": v
+                         for k, v in _flatten(lp, "", {}).items()})
+        flat["enc_final_norm"] = tree["enc_final_norm"]
     state = {k: torch.from_numpy(np.array(v)).to(device)
              for k, v in flat.items()}
     model = Model(cfg, None, "meta")

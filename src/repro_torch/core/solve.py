@@ -53,7 +53,7 @@ def _tile(tiles: torch.Tensor, i: int, j: int, device) -> torch.Tensor:
     return tiles[i, j].to(device, non_blocking=True).to(torch.float64)
 
 
-def solve_lower_tiles(tiles: torch.Tensor, b, device="cpu",
+def solve_lower_tiles(tiles: torch.Tensor, b, device="cuda",
                       rhs_block: Optional[int] = None) -> torch.Tensor:
     """Solve ``L z = b`` with L in the [nt, nt, tb, tb] tile store."""
     blocks, squeeze = _blocks(tiles, b, device)
@@ -70,7 +70,7 @@ def solve_lower_tiles(tiles: torch.Tensor, b, device="cpu",
     return out[:, 0] if squeeze else out
 
 
-def solve_lower_t_tiles(tiles: torch.Tensor, b, device="cpu",
+def solve_lower_t_tiles(tiles: torch.Tensor, b, device="cuda",
                         rhs_block: Optional[int] = None) -> torch.Tensor:
     """Solve ``L^T x = b`` with L in the [nt, nt, tb, tb] tile store."""
     blocks, squeeze = _blocks(tiles, b, device)
@@ -87,7 +87,7 @@ def solve_lower_t_tiles(tiles: torch.Tensor, b, device="cpu",
     return out[:, 0] if squeeze else out
 
 
-def cho_solve_tiles(tiles: torch.Tensor, b, device="cpu",
+def cho_solve_tiles(tiles: torch.Tensor, b, device="cuda",
                     rhs_block: Optional[int] = None) -> torch.Tensor:
     """Solve ``A x = b`` given ``A = L L^T`` in the tile store."""
     return solve_lower_t_tiles(

@@ -22,10 +22,13 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import dtype_of
 
 
-def decode_tokens(params, cfg, prompts: torch.Tensor, gen_len: int):
+def decode_tokens(params, cfg, prompts: torch.Tensor, gen_len: int,
+                  enc_out=None):
     """Replay ``prompts`` [B, P] through decode, then take ``gen_len`` greedy
-    tokens.  Returns (tokens [B, gen_len] as numpy, decode tokens/s of the
-    generation loop, the logits after the prompt [B, padded_vocab])."""
+    tokens; every step of an encoder-decoder model cross-attends to
+    ``enc_out`` where it is given.  Returns (tokens [B, gen_len] as numpy,
+    decode tokens/s of the generation loop, the logits after the prompt
+    [B, 1, padded_vocab])."""
     batch, prompt_len = prompts.shape
     max_len = prompt_len + gen_len
     dev = prompts.device
@@ -34,7 +37,8 @@ def decode_tokens(params, cfg, prompts: torch.Tensor, gen_len: int):
 
     logits = None
     for pos in range(prompt_len):
-        logits, cache = serve(params, cache, prompts[:, pos:pos + 1], pos)
+        logits, cache = serve(params, cache, prompts[:, pos:pos + 1], pos,
+                              enc_out)
     prompt_logits = logits
     tok = torch.argmax(logits[..., :cfg.vocab], dim=-1)
 
@@ -43,7 +47,7 @@ def decode_tokens(params, cfg, prompts: torch.Tensor, gen_len: int):
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for pos in range(prompt_len, max_len - 1):
-        logits, cache = serve(params, cache, tok, pos)
+        logits, cache = serve(params, cache, tok, pos, enc_out)
         tok = torch.argmax(logits[..., :cfg.vocab], dim=-1)
         out.append(tok)
     tokens = torch.cat(out, dim=1).cpu().numpy()

@@ -1,16 +1,19 @@
-"""GQA attention (+ sliding window, qk-norm, logit softcap) and MLA, the
-parts of ``repro.models.attention`` that the decoder-only families run.
+"""Attention variants: GQA (+ sliding window, qk-norm, logit softcap), MLA,
+cross-attention and the encoder's bidirectional attention (port of
+``repro.models.attention``).
 
 Prefill path: full-sequence causal attention, through the flash kernel
 where the reference takes its Pallas kernel, else exact chunked attention in
 plain torch ops.  Decode path: one query token against a ring-buffer KV
 cache, updated in place (the reference returns a new cache; here the same
 dict comes back with its slot written).  MLA caches the compressed KV and
-the rope key in a linear cache.  Cross-attention and bidirectional
-attention are not ported yet (ROADMAP queue 1 item 13.4).
+the rope key in a linear cache.  Cross-attention (decoder queries over the
+encoder's output) and bidirectional attention take the chunked path with no
+mask, as in the reference: neither reaches its Pallas kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -275,3 +278,34 @@ def decode_mla(p: MLA, cfg, x, cache, pos: int):
     y = _mla_attend(p, cfg, q_nope, q_rope, cache["c_kv"].to(x.dtype),
                     cache["k_rope"].to(x.dtype), mask)
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec)
+
+def init_cross(cfg, gen, device) -> GQA:
+    """``wq``, ``wk``, ``wv`` and ``wo`` of GQA's shapes, without qk-norm
+    (cross-attention takes no rope either)."""
+    return GQA(dataclasses.replace(cfg, qk_norm=False), gen, device)
+
+
+def cross_kv(p: GQA, enc_out):
+    """The keys and values [B, T, KV, hd] of the encoder's output."""
+    return _proj(enc_out, p.wk), _proj(enc_out, p.wv)
+
+
+def apply_cross(p: GQA, cfg, x, enc_kv):
+    """Every query of ``x`` over every encoder position (no mask)."""
+    k, v = enc_kv
+    out = _sdpa_chunked(_proj(x, p.wq), k, v, causal=False)
+    return _out(p, out, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional self-attention (encoder)
+
+def apply_bidir(p: GQA, cfg, x, positions):
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = _sdpa_chunked(q, k, v, causal=False,
+                        softcap=cfg.attn_logit_softcap)
+    return _out(p, out, x.dtype)

@@ -5,8 +5,7 @@ packages).
 One dataclass parameterizes every family (dense / MoE / MLA / SSM / hybrid /
 enc-dec / VLM-backbone); per-arch files in ``repro_torch/configs``
 instantiate it with the published numbers and a reduced smoke variant.  The
-port runs the decoder-only families (dense, MoE, MLA);
-``repro_torch.models.transformer`` raises for the others.
+port serves every family.
 """
 from __future__ import annotations
 

@@ -1030,6 +1030,140 @@ def test_cuda_dbrx_prefill_launches_flash_per_layer(cuda):
 
 
 # --------------------------------------------------------------------------
+# SSM, hybrid, frontend and encoder-decoder models: the smoke configs on the
+# card against the same weights on the CPU (f32, plain products: no kernel
+# of the port but flash)
+# --------------------------------------------------------------------------
+
+_MODEL_TOL = 1e-4      # f32 products over a few layers, in other orders
+
+
+def _card_and_cpu(cfg, cuda):
+    """A seeded model on the card and a CPU copy of its weights."""
+    from repro_torch.models import transformer as T
+    params = T.init_model(cfg, seed=0, device=cuda)
+    cpu = T.Model(cfg, None, "meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in params.state_dict().items()},
+                        assign=True)
+    return params, cpu
+
+
+def _model_inputs(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+    kw = {}
+    if cfg.frontend:
+        kw["frontend_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, 8, cfg.d_model)).astype(np.float32) * 0.5)
+    if cfg.is_encdec:
+        kw["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, 16, cfg.d_model)).astype(np.float32) * 0.5)
+    return tokens, kw
+
+
+def _prefill_and_decode_against_cpu(cfg, cuda):
+    """The prefill's logits at every position, then ten decode steps
+    (cross-attending to the encoder's output where the model has one), each
+    step's logits and every layer's cache after it, on the card against
+    the CPU."""
+    import repro_torch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+    params, cpu = _card_and_cpu(cfg, cuda)
+    b = 2
+    tokens, kw = _model_inputs(cfg, b, 2 * cfg.ssm_chunk, 8)
+    repro_torch.reset_counts()
+    h = T.forward(params, cfg, tokens.to(cuda),
+                  **{k: v.to(cuda) for k, v in kw.items()})
+    got = T.logits_from_hidden(params, cfg, h)
+    assert set(repro_torch.launch_counts().values()) == {0}
+    want = T.logits_from_hidden(cpu, cfg, T.forward(cpu, cfg, tokens, **kw))
+    torch.testing.assert_close(got.cpu(), want, atol=_MODEL_TOL,
+                               rtol=_MODEL_TOL)
+    enc = enc_cpu = None
+    if cfg.is_encdec:
+        enc_cpu = T.apply_encoder(cpu, cfg, kw["enc_embeds"])
+        enc = T.apply_encoder(params, cfg, kw["enc_embeds"].to(cuda))
+        torch.testing.assert_close(enc.cpu(), enc_cpu, atol=_MODEL_TOL,
+                                   rtol=_MODEL_TOL)
+    n_steps = 10
+    cache = T.init_cache(cfg, b, n_steps, torch.float32, device=cuda)
+    cache_cpu = T.init_cache(cfg, b, n_steps, torch.float32, device="cpu")
+    step = make_serve_step(cfg)
+    for pos in range(n_steps):
+        tok = tokens[:, pos:pos + 1]
+        got, cache = step(params, cache, tok.to(cuda), pos, enc)
+        want, cache_cpu = step(cpu, cache_cpu, tok, pos, enc_cpu)
+        torch.testing.assert_close(got.cpu(), want, atol=_MODEL_TOL,
+                                   rtol=_MODEL_TOL)
+        for c, cc in zip(cache, cache_cpu):
+            for key in c:
+                torch.testing.assert_close(c[key].cpu(), cc[key],
+                                           atol=_MODEL_TOL, rtol=_MODEL_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_smoke_against_cpu(cuda):
+    """mamba2's smoke model (SSM layers, tied embeddings): the chunked scan
+    over two chunks and the recurrent decode with its window and state."""
+    from repro_torch.configs import get_config
+    _prefill_and_decode_against_cpu(get_config("mamba2-130m", smoke=True),
+                                    cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_jamba_smoke_whole_interleave_against_cpu(cuda):
+    """jamba's smoke model whole: two scanned groups of 4 (SSM layers,
+    attention at j = 3, the MoE FFN at odd j), prefill and decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("jamba-1-5-large-398b", smoke=True)
+    kinds = [(cfg.layer_kind(i), cfg.layer_is_moe(i))
+             for i in T.layer_indices(cfg)]
+    assert kinds == [("ssm", False), ("ssm", True), ("ssm", False),
+                     ("attn", True)] * 2
+    _prefill_and_decode_against_cpu(cfg, cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_seamless_smoke_decode_with_enc_out_against_cpu(cuda):
+    """seamless's smoke model: the encoder, the prefill with frontend and
+    encoder inputs, and decode steps cross-attending to ``enc_out``."""
+    from repro_torch.configs import get_config
+    _prefill_and_decode_against_cpu(
+        get_config("seamless-m4t-large-v2", smoke=True), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llava-next-34b", "seamless-m4t-large-v2"])
+def test_cuda_frontend_and_encdec_prefill_launch_flash_per_layer(cuda, arch):
+    """llava's and seamless's smoke models in bf16 at S = 128, head_dim 64,
+    with their frontend embeddings and encoder frames: one tensor-core
+    flash launch per decoder layer (seamless's encoder and cross-attention
+    take the chunked path), no other kernel of the port."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch, smoke=True), head_dim=64,
+                              dtype="bfloat16", use_flash_attention=True)
+    params = T.init_model(cfg, seed=0, device=cuda)
+    tokens, kw = _model_inputs(cfg, 2, 128, 9)
+    repro_torch.reset_counts()
+    got = make_prefill_step(cfg)(params, {
+        "tokens": tokens.to(cuda), **{k: v.to(cuda) for k, v in kw.items()}})
+    torch.cuda.synchronize()
+    assert repro_torch.launch_counts() == {
+        **dict.fromkeys(repro_torch.launch_counts(), 0),
+        "flash_attention": cfg.num_layers}
+    assert ops.flash_variant_counts() == {"tensor_core": cfg.num_layers,
+                                          "ffma": 0}
+    assert torch.isfinite(got[:, :cfg.vocab]).all()
+
+
+# --------------------------------------------------------------------------
 # the multi-device executor, four logical devices on one card
 # --------------------------------------------------------------------------
 

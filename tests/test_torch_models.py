@@ -1,5 +1,5 @@
-"""The port's LM serving path (dense, MoE and MLA models) against the JAX
-package's LM scaffold.
+"""The port's LM serving path (every family: dense, MoE, MLA, SSM, hybrid,
+vision frontend, encoder-decoder) against the JAX package's LM scaffold.
 
 Every comparison feeds both packages the same values: the reference's
 parameters (``repro.models.*.init_*``) carried across as numpy arrays, and
@@ -41,6 +41,12 @@ DENSE = ["qwen3_14b", "gemma3_1b", "command_r_35b", "nemotron_4_340b"]
 # MoE and MLA: dbrx (GQA, routed experts), deepseek (MLA, a dense first
 # layer, shared and routed experts)
 MOE = ["dbrx_132b", "deepseek_v2_lite_16b"]
+# SSM and hybrid: mamba2 (SSM layers only, tied embeddings), jamba (SSM, MoE
+# and attention interleaved in scanned groups); frontends and enc-dec: llava
+# (vision embeddings over the leading positions), seamless (an encoder,
+# cross-attention in every decoder layer)
+SSM = ["mamba2_130m", "jamba_1_5_large_398b"]
+ENCDEC = ["llava_next_34b", "seamless_m4t_large_v2"]
 FN_TOL = 1e-5
 MODEL_TOL = 1e-4
 
@@ -72,6 +78,22 @@ def _module(module, tree):
     walk(tree, "")
     module.load_state_dict(flat, strict=True, assign=True)
     return module
+
+
+def _inputs(cfg, b=2, seed=20):
+    """The reference's ``tests/test_models.py`` model inputs by shape, from
+    a seed: frontend embeddings over the first 8 positions, 16 encoder
+    frames.  Returns (kwargs for the reference, kwargs for the port)."""
+    rng = np.random.default_rng(seed)
+    kw = {}
+    if cfg.frontend:
+        kw["frontend_embeds"] = rng.standard_normal(
+            (b, 8, cfg.d_model)).astype(np.float32) * 0.5
+    if cfg.is_encdec:
+        kw["enc_embeds"] = rng.standard_normal(
+            (b, 16, cfg.d_model)).astype(np.float32) * 0.5
+    return ({k: jnp.asarray(v) for k, v in kw.items()},
+            {k: torch.from_numpy(v) for k, v in kw.items()})
 
 
 def _ref_model(arch, seed=0):
@@ -307,13 +329,44 @@ def test_decode_gqa_past_the_ring_length():
 # ---------------------------------------------------------------------------
 # the model
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", SSM + ENCDEC)
+def test_new_families_layer_kinds_and_full_parameter_count(arch):
+    """SSM, attention and MoE where the reference's layer index puts them
+    (jamba's scanned groups: attention at j = 7, MoE at odd j), an encoder
+    and cross-attention for seamless, and at full size the reference's
+    abstract init's parameter count."""
+    cfg = configs.get_config(arch)
+    m = T.Model(cfg, None, "meta")
+    idx = T.layer_indices(cfg)
+    assert [hasattr(lp, "ssm") for lp in m.layers] == \
+        [cfg.layer_kind(i) == "ssm" for i in idx]
+    assert [hasattr(lp, "attn") for lp in m.layers] == \
+        [cfg.layer_kind(i) == "attn" for i in idx]
+    assert [hasattr(lp, "moe") for lp in m.layers] == \
+        [cfg.layer_is_moe(i) for i in idx]
+    assert all(hasattr(lp, "cross") == cfg.is_encdec for lp in m.layers)
+    assert len(getattr(m, "encoder", [])) == cfg.enc_layers
+    if arch == "jamba_1_5_large_398b":
+        assert idx == list(range(8)) * 9
+        assert [n for n, lp in enumerate(m.layers[:8]) if hasattr(lp, "attn")] \
+            == [7]
+    want = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(
+        JT.init_model_abstract(jconfigs.get_config(arch))[0]))
+    assert sum(p.numel() for p in m.parameters()) == want
+    if arch == "mamba2_130m":
+        assert want == 129_690_048
+    if arch == "seamless_m4t_large_v2":
+        assert want == 2_038_556_672
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ENCDEC)
 def test_forward_and_logits(arch):
     jcfg, jp, port = _ref_model(arch)
     cfg = configs.get_config(arch, smoke=True)
     tokens = np.random.default_rng(13).integers(0, cfg.vocab, (2, 32))
-    jh = JT.forward(jp, jcfg, jnp.asarray(tokens))
-    h = T.forward(port, cfg, torch.from_numpy(tokens))
+    jkw, kw = _inputs(cfg)
+    jh = JT.forward(jp, jcfg, jnp.asarray(tokens), **jkw)
+    h = T.forward(port, cfg, torch.from_numpy(tokens), **kw)
     _close(h, jh, MODEL_TOL)
     want = np.asarray(JT.logits_from_hidden(jp, jcfg, jh))
     got = T.logits_from_hidden(port, cfg, h)
@@ -339,9 +392,69 @@ def test_prefill_step_with_flash(arch):
         tokens)})
     assert got.shape == (1, cfg.padded_vocab)
     _close(got[:, :cfg.vocab], np.asarray(want)[:, :cfg.vocab], MODEL_TOL)
-    with pytest.raises(NotImplementedError, match="13.4"):
-        steps.make_prefill_step(cfg)(port, {"tokens": torch.from_numpy(
-            tokens), "enc_embeds": None})
+    # the batch's encoder input reaches the model, which (decoder-only, as
+    # in the reference) leaves it unread
+    seen = []
+    orig = T.forward
+
+    def spy(*args, **kw):
+        seen.append(kw)
+        return orig(*args, **kw)
+    enc = torch.ones(1, 16, cfg.d_model)
+    try:
+        T.forward = spy
+        again = steps.make_prefill_step(cfg)(port, {
+            "tokens": torch.from_numpy(tokens), "enc_embeds": enc})
+    finally:
+        T.forward = orig
+    assert seen[0]["enc_embeds"] is enc and "frontend_embeds" not in seen[0]
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("arch", ENCDEC)
+def test_prefill_step_with_model_inputs_and_flash(arch):
+    """make_prefill_step at S = 128 with the flash flag on and the batch's
+    frontend embeddings (llava) or encoder frames (seamless): the last
+    position's logits against the reference's step on the same batch."""
+    jcfg, jp, port = _ref_model(arch)
+    jcfg = dataclasses.replace(jcfg, use_flash_attention=True)
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              use_flash_attention=True)
+    tokens = np.random.default_rng(21).integers(0, cfg.vocab, (2, 128))
+    jkw, kw = _inputs(cfg, seed=22)
+    want = jsteps.make_prefill_step(jcfg)(jp, {"tokens": jnp.asarray(tokens),
+                                               **jkw})
+    calls = []
+    got = steps.make_prefill_step(cfg, flash=lambda *a, **k: calls.append(k)
+                                  or A.flash_gqa(*a, **k))(
+        port, {"tokens": torch.from_numpy(tokens), **kw})
+    _close(got[:, :cfg.vocab], np.asarray(want)[:, :cfg.vocab], MODEL_TOL)
+    assert len(calls) == cfg.num_layers        # the decoder's self-attention
+    without = steps.make_prefill_step(cfg)(port, {
+        "tokens": torch.from_numpy(tokens),
+        **{k: v for k, v in kw.items() if k != "frontend_embeds"}})
+    if cfg.frontend == "vision":
+        assert float((without - got)[:, :cfg.vocab].abs().max()) > 1e-3
+    if cfg.is_encdec:
+        with pytest.raises(ValueError, match="enc_embeds"):
+            steps.make_prefill_step(cfg)(port, {"tokens": torch.from_numpy(
+                tokens)})
+
+
+@pytest.mark.parametrize("arch", configs.ARCHS)
+def test_prefill_step_equals_reference(arch):
+    """make_prefill_step on every smoke config, with its model inputs: the
+    last position's logits against the reference's step."""
+    jcfg, jp, port = _ref_model(arch)
+    cfg = configs.get_config(arch, smoke=True)
+    tokens = np.random.default_rng(23).integers(0, cfg.vocab, (2, 32))
+    jkw, kw = _inputs(cfg, seed=24)
+    want = jsteps.make_prefill_step(jcfg)(jp, {"tokens": jnp.asarray(tokens),
+                                               **jkw})
+    got = steps.make_prefill_step(cfg)(port, {
+        "tokens": torch.from_numpy(tokens), **kw})
+    assert got.shape == (2, cfg.padded_vocab)
+    _close(got[:, :cfg.vocab], np.asarray(want)[:, :cfg.vocab], MODEL_TOL)
 
 
 def _unstack_cache(cfg, cache):
@@ -354,8 +467,11 @@ def _unstack_cache(cfg, cache):
     return out + list(cache["remainder"])
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ENCDEC)
 def test_init_cache_and_decode_step(arch):
+    """Each step's logits and every layer's cache after it (an SSM layer's
+    window and state are rewritten each step) against the reference's;
+    seamless's steps cross-attend to the same encoder output."""
     jcfg, jp, port = _ref_model(arch)
     cfg = configs.get_config(arch, smoke=True)
     b, max_len, n = 2, 12, 10
@@ -368,20 +484,23 @@ def test_init_cache_and_decode_step(arch):
     jstep = jax.jit(jsteps.make_serve_step(jcfg))
     step = steps.make_serve_step(cfg)
     tokens = np.random.default_rng(15).integers(0, cfg.vocab, (b, n))
+    enc = (_rand((b, 16, cfg.d_model), 16, 0.5) if cfg.is_encdec else None)
+    jenc = None if enc is None else jnp.asarray(enc)
+    tenc = None if enc is None else torch.from_numpy(enc)
     for pos in range(n):
         want, jcache = jstep(jp, jcache, jnp.asarray(tokens[:, pos:pos + 1]),
-                             jnp.int32(pos))
+                             jnp.int32(pos), jenc)
         got, cache = step(port, cache, torch.from_numpy(
-            tokens[:, pos:pos + 1]), pos)
+            tokens[:, pos:pos + 1]), pos, tenc)
         assert got.shape == (b, 1, cfg.padded_vocab)
         _close(got[..., :cfg.vocab], np.asarray(want)[..., :cfg.vocab],
                MODEL_TOL)
-    for c, rc in zip(cache, _unstack_cache(jcfg, jcache)):
-        for key in c:
-            _close(c[key], rc[key], MODEL_TOL)
+        for c, rc in zip(cache, _unstack_cache(jcfg, jcache)):
+            for key in c:
+                _close(c[key], rc[key], MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", ["gemma3_1b", "qwen3_14b"] + MOE)
+@pytest.mark.parametrize("arch", configs.ARCHS)
 def test_greedy_tokens_equal_reference_generate(arch):
     """The reference's generate and the port's decode loop, given the same
     parameters and prompts, pick the same greedy tokens."""
@@ -409,15 +528,49 @@ def test_generate_from_a_seed():
     np.testing.assert_array_equal(tokens, again)
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("mamba2_130m", "13.3"), ("jamba_1_5_large_398b", "13.3"),
-    ("llava_next_34b", "13.4"), ("seamless_m4t_large_v2", "13.4")])
-def test_unported_families_raise(arch, item):
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2"])
+def test_decode_tokens_with_enc_out(arch):
+    """decode_tokens with the encoder's output: the greedy tokens of the
+    reference's serve step fed the same ``enc_out`` each step, and other
+    tokens than without it."""
+    jcfg, jp, port = _ref_model(arch)
     cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=item):
-        T.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        T.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+    b, prompt_len, gen_len = 2, 6, 6
+    prompts = np.random.default_rng(17).integers(0, cfg.vocab,
+                                                 (b, prompt_len))
+    frames = _rand((b, 16, cfg.d_model), 18, 0.5)
+    jenc = JT._apply_encoder(jp, jcfg, jnp.asarray(frames))
+    enc = T.apply_encoder(port, cfg, torch.from_numpy(frames))
+    _close(enc, jenc, MODEL_TOL)
+    jstep = jax.jit(jsteps.make_serve_step(jcfg))
+    jcache = JT.init_cache(jcfg, b, prompt_len + gen_len, jnp.float32)
+    for pos in range(prompt_len):
+        logits, jcache = jstep(jp, jcache, jnp.asarray(prompts[:, pos:pos + 1]),
+                               jnp.int32(pos), jenc)
+    tok = jnp.argmax(logits[..., :cfg.vocab], axis=-1).astype(jnp.int32)
+    want = [tok]
+    for pos in range(prompt_len, prompt_len + gen_len - 1):
+        logits, jcache = jstep(jp, jcache, tok, jnp.int32(pos), jenc)
+        tok = jnp.argmax(logits[..., :cfg.vocab], axis=-1).astype(jnp.int32)
+        want.append(tok)
+    got, _, _ = serve.decode_tokens(port, cfg, torch.from_numpy(prompts),
+                                    gen_len, enc_out=enc)
+    np.testing.assert_array_equal(got, np.concatenate(want, axis=1))
+    plain, _, _ = serve.decode_tokens(port, cfg, torch.from_numpy(prompts),
+                                      gen_len)
+    assert (plain != got).any()
+
+
+@pytest.mark.parametrize("entry", ["loss_fn", "make_train_step"])
+def test_training_entry_points_raise(entry):
+    """Training is the next slice: its entry points name ROADMAP item
+    13.5."""
+    cfg = configs.get_config("qwen3-14b", smoke=True)
+    with pytest.raises(NotImplementedError, match="13.5"):
+        if entry == "loss_fn":
+            steps.loss_fn(None, cfg, {})
+        else:
+            steps.make_train_step(cfg)
 
 
 def test_cpu_path_launches_no_kernel():
@@ -436,7 +589,8 @@ def test_import_leaves_jax_and_repro_out():
     (``sys.modules[name] = None`` makes an import of them fail)."""
     names = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
-    assert {"repro_torch.models.transformer", "repro_torch.launch.serve",
+    assert {"repro_torch.models.transformer", "repro_torch.models.ssm",
+            "repro_torch.launch.serve",
             "repro_torch.kernels.flash_attention"} <= set(names)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
