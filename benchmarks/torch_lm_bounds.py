@@ -2,7 +2,7 @@
 """Readings behind ``chip_smoke.py``'s flash and logit bounds, over seeds.
 
     python3 benchmarks/torch_lm_bounds.py [--seeds 0 1 2] [--moe | --ssm
-                                           --encdec]
+                                           --encdec | --train]
 
 Runs ``chip_smoke.py``'s flash checks (every case, each output row against
 its allowance, the dropped-KV-tile and zeroed-output controls, and each
@@ -22,10 +22,15 @@ its prompt with its controls (the SSM models' in f32, as the script
 holds them, the others in bf16), and the same replay logged in the other
 type;
 seamless's and llava's flash prefill against the plain attention with its
-faults.  A failed requirement is logged, not raised, so
+faults; with ``--train`` the training phase's card-against-CPU check (a
+train step in f32 on gemma3-1b at one scan group, mamba2-130m whole and
+deepseek-v2-lite-16b at two layers: loss, grad_norm, every gradient, the
+moments and parameters after, and the zeroed-mixer control).  A failed
+requirement is logged, not raised, so
 every seed's reading is kept.  Needs a CUDA device; writes
 ``chiprun_out/torch_lm_bounds.json`` (``torch_moe_bounds.json`` with
-``--moe``, ``torch_ssm_encdec_bounds.json`` with ``--ssm``/``--encdec``).
+``--moe``, ``torch_ssm_encdec_bounds.json`` with ``--ssm``/``--encdec``,
+``torch_train_bounds.json`` with ``--train``).
 """
 from __future__ import annotations
 
@@ -49,6 +54,9 @@ def main() -> int:
     ap.add_argument("--encdec", action="store_true",
                     help="read the encoder-decoder and frontend phase "
                     "instead")
+    ap.add_argument("--train", action="store_true",
+                    help="read the training phase's card-against-CPU "
+                    "check instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_lm_bounds: needs a CUDA device", file=sys.stderr)
@@ -62,6 +70,8 @@ def main() -> int:
     out = {"card": cs.card_line()}
     if args.moe:
         return moe_bounds(cs, dev, args.seeds, out)
+    if args.train:
+        return train_bounds(cs, dev, args.seeds, out)
     if args.ssm or args.encdec:
         return family_bounds(cs, dev, args.seeds, out, args.ssm, args.encdec)
     for seed in args.seeds:
@@ -143,6 +153,24 @@ def moe_bounds(cs, dev, seeds, out) -> int:
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "torch_moe_bounds.json").write_text(json.dumps(out, indent=1))
+    cs.log(out["card"])
+    return 0
+
+
+def train_bounds(cs, dev, seeds, out) -> int:
+    keys = ("loss_rel", "grad_norm_rel", "grad_ratio", "moment_ratio",
+            "step_lr_units", "control_grad_ratio")
+    rows = {}
+    for seed in seeds:
+        run = cs.train_card_vs_cpu(dev, seed)
+        out[f"seed {seed}"] = run
+        torch.cuda.empty_cache()
+        rows[seed] = {tag: {k: r[k] for k in keys} for tag, r in run.items()}
+        cs.log(f"seed {seed}: " + json.dumps(rows[seed]))
+    out["summary"] = rows
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    (outdir / "torch_train_bounds.json").write_text(json.dumps(out, indent=1))
     cs.log(out["card"])
     return 0
 

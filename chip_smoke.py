@@ -164,6 +164,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    frontend embeddings over a 4 x 2048 prefill, 16 tensor-core flash
    launches at 56/8 heads (controls: the frontend embeddings ignored,
    the flash kernel without its causal mask); the phase's seconds;
+   phases 10-10d run under ``torch.no_grad()``: serving keeps no graph;
+10e. training on the card (``repro_torch.launch.steps.make_train_step``:
+   the loss, autograd, AdamW; f32 weights from ``--seed``, bf16
+   activations, ``DataPipeline`` batches of 2048-token rows, remat over
+   each scanned group), each step's loss and grad_norm finite and
+   grad_norm above 0, no kernel of the port launched, the first batch's
+   loss after the steps below its first reading, step seconds, tokens/s,
+   the model-flops share 6 N tokens / (s x 989 TFLOP/s) as a reading and
+   the peak memory beside its reckoning: gemma3-1b whole (999,826,048
+   parameters, the reference's count; 8 x 2048 tokens a step as 2
+   microbatches of 4 x 2048) for 6 steps with f32 moments, then 6 with Q8
+   moments from the same start; with its flash flag on, its loss under
+   grad must raise ``NotImplementedError`` and its prefill under no_grad
+   launch the tensor-core kernel once a global layer; mamba2-130m whole,
+   4 x 2048, 6 steps (the SSD scan under autograd); deepseek-v2-lite-16b
+   cut to 2 of 27 layers (MLA, then 2 shared and 64 routed experts top-6;
+   1,085,287,424 parameters), 4 x 2048, 3 steps.  Then the card's step
+   against the port's CPU step on the same weights and a 1 x 512 batch in
+   f32 with TF32 off (gemma3 at one scan group of 6 layers, mamba2 whole,
+   deepseek's 2 layers): loss and grad_norm, every gradient and
+   moment at its own scale, the parameters after the step, each within its
+   bound, and the mixer-input gradients zeroed (the shape of a kernel that
+   cuts its gradient) must fail the gradient bound; mamba2 trained through
+   ``launch.train.train`` to step 6 straight and with a checkpoint at step
+   3 resumed in a fresh trainer: the parameters bitwise, or within the
+   spread of two straight runs (it says which); the phase's seconds;
 11. tuner and service: ``repro_torch.tune.calibrate`` on the card at the
    main path's tile size in f32 (every one of the five Cholesky kernels
    launched; ``mem_bytes`` the card's total memory; each per-class rate
@@ -202,16 +228,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    output in ``chiprun_out/examples/``);
 13. the kernels line (JSON; each kernel also with its launches in config
    A, in the disk tier, in calibration, in the tuned factor, in the
-   served pair and through the shim; flash attention also with dbrx's,
-   seamless's and llava's prefill's), each phase's seconds, the script's
+   served pair, through the shim and in phase 10e's training steps, all
+   0 there; flash attention also with dbrx's, seamless's and llava's
+   prefill's), each phase's seconds, the script's
    wall time, and the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
 ``chiprun_out/chip_smoke.json`` as well.  ``--n``, ``--mxp-n``, ``--geo-n``,
 ``--spill-n`` and ``--tb`` cut the Cholesky sizes for a quick run; the
-models run at full width, and at full depth but for dbrx's, jamba's and
-llava's.
+models run at full width, and at full depth but for dbrx's, jamba's,
+llava's and the trained deepseek's.
 """
 from __future__ import annotations
 
@@ -3352,6 +3379,408 @@ def encdec_frontend_serving(dev, seed: int, card: str,
     return out
 
 
+# Phase 10e, training on one card.  Models take f32 weights from --seed,
+# bf16 activations (their configs' type) and DataPipeline batches of
+# TRAIN_SEQ tokens a row, through repro_torch.launch.steps.make_train_step
+# (AdamW at TRAIN_LR, remat over each scanned group).  gemma3-1b whole
+# (26 layers: 4 scanned groups of 6 and 2 more; tied 262,144-word
+# embeddings): 8 x 2048 tokens a step as 2 microbatches of 4 x 2048, 6
+# steps with f32 moments, then 6 with Q8 moments from the same start.
+# mamba2-130m whole, 4 x 2048, 6 steps.  deepseek-v2-lite-16b cut to
+# DEEPSEEK_TRAIN_LAYERS of its 27 layers (the dense layer 0 with MLA, then
+# one layer of 2 shared and 64 routed experts top-6): 27 layers with Adam
+# state would need ~250 GB.  The parameter counts are the reference's
+# abstract init's at these depths.
+TRAIN_SEQ = 2048
+TRAIN_LR = 3e-4
+TRAIN_STEPS = 6
+GEMMA3_PARAMS = 999_826_048
+GEMMA3_TRAIN = (8, 2)            # rows a step, microbatches
+MAMBA2_TRAIN = (4, 1)
+DEEPSEEK_TRAIN_LAYERS = 2
+DEEPSEEK2_PARAMS = 1_085_287_424
+DEEPSEEK_TRAIN = (4, 1)
+DEEPSEEK_TRAIN_STEPS = 3
+MAMBA2_RESUME_AT = 3
+H100_BF16_PEAK = 989e12          # dense bf16 FLOP/s, the MFU reading's
+# The card's train step against the port's CPU step on the same weights and
+# batch (1 x CHECK_TOKENS), in f32 activations with TF32 off: gemma3 at one
+# scan group (6 layers, one global), mamba2 whole, deepseek's 2 layers.
+# The step's parts are compared: the loss and grad_norm relative
+# (TRAIN_LOSS_BOUND); each parameter's gradient and each moment after one
+# AdamW step at its own scale, max|card - cpu| <= TRAIN_GRAD_BOUND[model]
+# max|cpu|; the parameters after the step in units of TRAIN_LR where the
+# CPU gradient is at least STEP_G_FLOOR of its parameter's largest
+# (elsewhere one step moves an entry by LR g / (|g| + eps), which the two
+# roundings of g can flip).  The control zeroes the gradients of the token
+# mixers' input projections (attention's wq/wk/wv, MLA's wq and wkv_down,
+# the SSM's in_proj: the shape of a flash kernel that cuts its gradient)
+# and must fail the gradient bound: it reads 1.  Each bound is about 3
+# times the worst reading over seeds 0-2 (benchmarks/torch_lm_bounds.py
+# --train, NVIDIA H100 80GB HBM3, 700 W): loss and grad_norm to 9.9e-6
+# (mamba2's grad_norm); gradients and moments to 1.2e-5 (gemma3), 2.0e-5
+# (deepseek) and 1.28e-3 (mamba2: the SSD's segsum, differences
+# of cumulative sums near 200 in f32, as its f32 replay's 1.1e-4-1.8e-4
+# in phase 10c); the parameters after a step to 5.5e-4 lr.
+CHECK_TOKENS = 512
+TRAIN_GRAD_BOUND = {"gemma3-1b": 4e-5, "mamba2-130m": 4e-3,
+                    "deepseek-v2-lite-16b": 6e-5}
+TRAIN_LOSS_BOUND = 3e-5
+TRAIN_STEP_BOUND = 2e-3
+STEP_G_FLOOR = 1e-3
+MIXER_IN = ("attn.wq", "attn.wk", "attn.wv", "attn.wkv_down", "ssm.in_proj")
+
+
+def reckon_train_peak_gb(n: int, mb_tokens: int, vocab: int, accum: int,
+                         quantized: bool) -> float:
+    """Device memory a train step should peak at: f32 weights and one
+    microbatch's gradients (4 bytes a parameter each), the f32 accumulator
+    with more than one microbatch (4), the moments (8, or Q8's int8 payloads
+    and a scale a 128: 2.06), and the loss's backward over the vocab: the
+    saved f32 log-probabilities, their gradient and the logits' f32
+    gradient alive at once (12 bytes an entry of a microbatch's logits).
+    Activations (remat keeps each group's input) are left out."""
+    per = 4 + 4 + (4 if accum > 1 else 0) + (2 + 8 / 128 if quantized
+                                               else 8)
+    return (per * n + 12 * mb_tokens * vocab) / 1e9
+
+
+def eval_loss(params, cfg, batch: dict, accum: int) -> float:
+    """The train step's loss on ``batch`` (the mean of its microbatches'),
+    with no graph."""
+    from repro_torch.launch.steps import loss_fn
+    with torch.no_grad():
+        parts = [float(loss_fn(params, cfg, {k: x.chunk(accum)[i]
+                                             for k, x in batch.items()}))
+                 for i in range(accum)]
+    return sum(parts) / accum
+
+
+def train_model(tag: str, cfg, dev, seed: int, want_params: int,
+                rows: int, accum: int, steps: int, quantized: bool,
+                card: str):
+    """``steps`` train steps of ``cfg`` from ``seed``'s weights on
+    DataPipeline batches of rows x TRAIN_SEQ: each step's loss and grad_norm
+    finite and grad_norm above 0, no kernel of the port launched, the loss
+    of the first batch again after the steps below its first reading, step
+    seconds, tokens/s, the model-flops share and the peak beside its
+    reckoning.  Returns (the readings, the trained model)."""
+    import repro_torch
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_model = time.perf_counter()
+    params = T.init_model(cfg, seed, dev).requires_grad_(True)
+    n = sum(p.numel() for p in params.parameters())
+    require(n == want_params, f"{tag} parameters {n:,} != {want_params:,}")
+    opt = adamw_init(params, quantize=quantized)
+    step = make_train_step(cfg, lr=TRAIN_LR, accum_steps=accum,
+                           quantized_opt=quantized)
+    pipe = DataPipeline(cfg.vocab, TRAIN_SEQ, rows, seed=seed)
+    first = device_batch(next(DataPipeline(cfg.vocab, TRAIN_SEQ, rows,
+                                           seed=seed)), dev)
+    tokens = rows * TRAIN_SEQ
+    reckoned = reckon_train_peak_gb(n, tokens // accum, cfg.padded_vocab,
+                                    accum, quantized)
+    log(f"train: {tag} [{card}] {cfg.num_layers} layers, {n:,} parameters, "
+        f"{rows} x {TRAIN_SEQ} tokens a step as {accum} microbatch(es), "
+        f"{'Q8' if quantized else 'f32'} moments, remat {cfg.remat}; "
+        f"reckoned peak {reckoned:.1f} GB")
+    repro_torch.reset_counts()
+    times, losses, gnorms = [], [], []
+    for i in range(steps):
+        batch = device_batch(next(pipe), dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        log(f"train: {tag} step {i} loss {loss:.4f} grad_norm {gnorm:.4f} "
+            f"{times[-1]:.3f}s")
+        require(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0,
+                f"{tag} step {i}: loss {loss}, grad_norm {gnorm}")
+    launches = repro_torch.launch_counts()
+    require(set(launches.values()) == {0},
+            f"{tag} training launched {launches}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    again = eval_loss(params, cfg, first, accum)
+    log(f"train: {tag} the first batch's loss {losses[0]:.4f} -> {again:.4f} "
+        f"after {steps} steps (fell by {losses[0] - again:.4f})")
+    require(again < losses[0], f"{tag} loss on a repeated batch "
+            f"{losses[0]} -> {again}")
+    step_s = statistics.median(times[1:])
+    mfu = 6 * n * tokens / (step_s * H100_BF16_PEAK)
+    log(f"train: {tag} [{card}] step {step_s:.3f}s (median of steps 1-"
+        f"{steps - 1}; step 0 {times[0]:.3f}s), {tokens / step_s:.0f} "
+        f"tokens/s, model-flops share 6 N tokens / (s x 989 TFLOP/s) "
+        f"{mfu:.4f} (a reading), peak {peak:.2f} GB (reckoned {reckoned:.1f})")
+    out = {"model": cfg.name, "layers": cfg.num_layers, "params": n,
+           "rows": rows, "seq": TRAIN_SEQ, "accum_steps": accum,
+           "quantized_opt": quantized, "lr": TRAIN_LR, "losses": losses,
+           "grad_norms": gnorms, "step_s": times, "step_s_median": step_s,
+           "tokens_per_s": tokens / step_s, "mfu": mfu, "peak_gb": peak,
+           "reckoned_peak_gb": reckoned, "first_batch_loss_after": again,
+           "launches": launches, "card": card,
+           "seconds": time.perf_counter() - t_model}
+    return out, params
+
+
+def _state_on(model, cfg, device):
+    """A second model holding ``model``'s values on ``device``."""
+    from repro_torch.models.transformer import Model
+    twin = Model(cfg, None, "meta")
+    twin.load_state_dict({k: v.detach().to(device, copy=True) for k, v in
+                          model.state_dict().items()}, assign=True)
+    return twin
+
+
+def _ratios(got: dict, want: dict, dev) -> dict:
+    """max|got - want| / max|want| for each name of ``want``, in f64 on
+    ``dev`` (the difference itself where ``want`` is all zero)."""
+    out = {}
+    for k, w in want.items():
+        w = w.detach().to(dev).double()
+        d = (got[k].detach().to(dev).double() - w).abs().max()
+        s = w.abs().max()
+        out[k] = float(d / s) if s > 0 else float(d)
+    return out
+
+
+def card_vs_cpu(tag: str, cfg, dev, seed: int) -> dict:
+    """One train step of ``cfg`` (``make_train_step``'s parts:
+    ``loss_and_grads``, ``grad_norm``, ``adamw_update``) in f32 activations
+    on the card and on the CPU from the same weights and batch: loss,
+    grad_norm, every gradient, the parameters and moments after, each
+    against its bound, and the mixer-input control against the gradient
+    bound."""
+    import dataclasses
+
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import grad_norm, loss_and_grads
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init, adamw_update
+    bound = TRAIN_GRAD_BOUND[cfg.name]
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        card = T.init_model(cfg, seed, dev).requires_grad_(True)
+        host = _state_on(card, cfg, "cpu").requires_grad_(True)
+        batch = next(DataPipeline(cfg.vocab, CHECK_TOKENS, 1, seed=seed))
+        res = {}
+        for name, model, device in (("card", card, dev), ("cpu", host,
+                                                          "cpu")):
+            # make_train_step's parts, so that the gradients can be read
+            loss, grads = loss_and_grads(model, cfg,
+                                         device_batch(batch, device))
+            gnorm = grad_norm(grads)
+            model, opt = adamw_update(model, grads, adamw_init(model),
+                                      lr=TRAIN_LR)
+            res[name] = (loss, grads, gnorm, model.state_dict(), opt)
+        (cl, cg, cm, cp, co), (hl, hg, hm, hp, ho) = res["card"], res["cpu"]
+        grads = _ratios(cg, hg, dev)
+        grad = max(grads.values())
+        mixer = {k: g for k, g in hg.items() if k.endswith(MIXER_IN)}
+        control = max([*_ratios({k: torch.zeros_like(g) for k, g in
+                                 mixer.items()}, mixer, dev).values(),
+                       *(r for k, r in grads.items() if k not in mixer)])
+        moments = max(*_ratios(co.m, ho.m, dev).values(),
+                      *_ratios(co.v, ho.v, dev).values())
+        worst_step = 0.0
+        for k, g in hg.items():
+            g = g.to(dev).abs()
+            ok = g >= STEP_G_FLOOR * g.max()
+            d = torch.where(ok, (cp[k] - hp[k].to(dev)).abs(), 0.0).max()
+            worst_step = max(worst_step, float(d) / TRAIN_LR)
+        loss_rel = abs(float(cl) - float(hl)) / abs(float(hl))
+        gnorm_rel = abs(float(cm) - float(hm)) / float(hm)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+    out = {"tokens": CHECK_TOKENS, "layers": cfg.num_layers,
+           "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+           "grad_ratio": grad, "moment_ratio": moments,
+           "step_lr_units": worst_step, "control_grad_ratio": control,
+           "seconds": time.perf_counter() - t0}
+    log(f"train: {tag} card vs CPU, 1 x {CHECK_TOKENS} tokens in f32, TF32 "
+        f"off: loss {loss_rel:.3e}, grad_norm {gnorm_rel:.3e} (bound "
+        f"{TRAIN_LOSS_BOUND}), gradients {grad:.3e}, moments {moments:.3e} of "
+        f"their own scale (bound {bound}), parameters after a step "
+        f"{worst_step:.2e} x lr (bound {TRAIN_STEP_BOUND}); control (mixer "
+        f"input gradients zeroed) {control:.3f} (must exceed {bound}); "
+        f"{out['seconds']:.1f}s")
+    require(loss_rel <= TRAIN_LOSS_BOUND and gnorm_rel <= TRAIN_LOSS_BOUND,
+            f"{tag} card vs CPU loss {loss_rel}, grad_norm {gnorm_rel}")
+    require(grad <= bound and moments <= bound,
+            f"{tag} card vs CPU gradients {grad}, moments {moments}")
+    require(worst_step <= TRAIN_STEP_BOUND,
+            f"{tag} card vs CPU parameters after a step {worst_step} x lr")
+    require(control > bound,
+            f"{tag} the gradient check passes the zeroed-mixer control")
+    return out
+
+
+def check_configs():
+    """The three card-against-CPU configurations, by tag."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return {
+        "gemma3-1b (6 layers)": dataclasses.replace(
+            get_config("gemma3-1b"), num_layers=6),
+        "mamba2-130m": get_config("mamba2-130m"),
+        f"deepseek-v2-lite-16b ({DEEPSEEK_TRAIN_LAYERS} layers)":
+            dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                                num_layers=DEEPSEEK_TRAIN_LAYERS)}
+
+
+def train_card_vs_cpu(dev, seed: int) -> dict:
+    return {tag: card_vs_cpu(tag, cfg, dev, seed)
+            for tag, cfg in check_configs().items()}
+
+
+def mamba2_resume(dev, seed: int, card: str) -> dict:
+    """mamba2-130m through ``repro_torch.launch.train.train`` on the card:
+    TRAIN_STEPS steps straight through against MAMBA2_RESUME_AT steps, a
+    checkpoint, and a fresh ``train`` resuming to TRAIN_STEPS; the
+    parameters bitwise, or else within the spread of two straight runs."""
+    import signal
+    import tempfile
+
+    from repro_torch.launch.train import train
+    rows = MAMBA2_TRAIN[0]
+    kw = dict(arch="mamba2-130m", smoke=False, batch=rows, seq=TRAIN_SEQ,
+              lr=TRAIN_LR, save_every=MAMBA2_RESUME_AT, log_every=1,
+              seed=seed, device=dev)
+    old = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+
+    def state(model):
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    try:
+        with tempfile.TemporaryDirectory() as a, \
+                tempfile.TemporaryDirectory() as b:
+            model, straight = train(**kw, steps=TRAIN_STEPS, ckpt_dir=a)
+            want = state(model)
+            del model
+            train(**kw, steps=MAMBA2_RESUME_AT, ckpt_dir=b)
+            model, resumed = train(**kw, steps=TRAIN_STEPS, ckpt_dir=b)
+            got = state(model)
+            del model
+        diff = max(float((got[k] - v).abs().max()) for k, v in want.items())
+        out = {"straight_losses": straight, "resumed_losses": resumed,
+               "max_abs_diff": diff, "bitwise": diff == 0.0}
+        if diff:
+            model, _ = train(**kw, steps=TRAIN_STEPS)
+            spread = max(float((v - want[k]).abs().max())
+                         for k, v in state(model).items())
+            del model
+            out["straight_spread"] = spread
+            require(diff <= spread, f"mamba2 resume differs by {diff}, two "
+                    f"straight runs by {spread}")
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train: mamba2-130m [{card}] resumed at step {MAMBA2_RESUME_AT} of "
+        f"{TRAIN_STEPS}: parameters "
+        + ("bitwise the straight run's" if out["bitwise"] else
+           f"differ by {diff:.3e}, within two straight runs' "
+           f"{out['straight_spread']:.3e}")
+        + f"; resumed losses {resumed} ({out['seconds']:.1f}s)")
+    require(resumed == straight[MAMBA2_RESUME_AT:] or not out["bitwise"],
+            f"mamba2 resumed losses {resumed} vs {straight}")
+    return out
+
+
+def flash_in_training(params, cfg, dev) -> dict:
+    """gemma3 with the flash flag on: its loss under grad raises (the
+    kernels have no backward); its prefill under no_grad still launches
+    the tensor-core kernel, once a global layer."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch.steps import loss_fn, make_prefill_step
+    flash = dataclasses.replace(cfg, use_flash_attention=True)
+    tokens = torch.zeros((1, 256), dtype=torch.int64, device=dev)
+    batch = {"tokens": tokens, "labels": tokens}
+    raised = None
+    try:
+        loss_fn(params, flash, batch)
+    except NotImplementedError as e:
+        raised = str(e)
+    require(raised is not None and "_flash_kernel" in raised,
+            "gemma3 with flash under grad did not raise")
+    n_global = sum(cfg.layer_window(i) is None for i in params.layer_idx)
+    repro_torch.reset_counts()
+    logits = make_prefill_step(flash)(params, {"tokens": tokens})
+    torch.cuda.synchronize(dev)
+    launches = dict(F.variant_launches)
+    require(logits.grad_fn is None and bool(torch.isfinite(logits).all()),
+            "gemma3 flash prefill under no_grad")
+    require(launches == {"tensor_core": n_global, "ffma": 0},
+            f"gemma3 flash prefill launched {launches}, want {n_global} "
+            f"tensor-core")
+    log(f"train: gemma3-1b with the flash flag: under grad raises "
+        f"NotImplementedError ({raised[:60]}...); prefill 1 x 256 under "
+        f"no_grad launched {launches}")
+    return {"raised": raised, "prefill_launches": launches}
+
+
+def training(dev, seed: int, card: str) -> dict:
+    """Phase 10e: gemma3-1b whole with f32 then Q8 moments, mamba2-130m
+    whole, deepseek-v2-lite-16b cut to DEEPSEEK_TRAIN_LAYERS layers, each
+    trained on the card with its checks; the card against the CPU; mamba2's
+    resume; gemma3's flash flag under grad and under no_grad."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    gemma = get_config("gemma3-1b")
+    rows, accum = GEMMA3_TRAIN
+    out["gemma3_f32"], params = train_model(
+        "gemma3-1b", gemma, dev, seed, GEMMA3_PARAMS, rows, accum,
+        TRAIN_STEPS, False, card)
+    out["flash"] = flash_in_training(params, gemma, dev)
+    del params
+    out["gemma3_q8"] = train_model(
+        "gemma3-1b", gemma, dev, seed, GEMMA3_PARAMS, rows, accum,
+        TRAIN_STEPS, True, card)[0]
+    f32, q8 = out["gemma3_f32"]["losses"], out["gemma3_q8"]["losses"]
+    log(f"train: gemma3-1b step 0 loss with f32 moments {f32[0]!r}, with Q8 "
+        f"{q8[0]!r} (the same start); after {TRAIN_STEPS} steps "
+        f"{f32[-1]:.4f} and {q8[-1]:.4f}")
+    rows, accum = MAMBA2_TRAIN
+    out["mamba2"] = train_model(
+        "mamba2-130m", get_config("mamba2-130m"), dev, seed, MAMBA2_PARAMS,
+        rows, accum, TRAIN_STEPS, False, card)[0]
+    ds = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                             num_layers=DEEPSEEK_TRAIN_LAYERS)
+    rows, accum = DEEPSEEK_TRAIN
+    out["deepseek"] = train_model(
+        "deepseek-v2-lite-16b", ds, dev, seed, DEEPSEEK2_PARAMS, rows, accum,
+        DEEPSEEK_TRAIN_STEPS, False, card)[0]
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = train_card_vs_cpu(dev, seed)
+    torch.cuda.empty_cache()
+    out["mamba2_resume"] = mamba2_resume(dev, seed, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"train: phase 10e [{card}] took {out['seconds']:.1f}s")
+    return out
+
+
 # Phase 11, the tuner and the solver service.  The burst: SERVE_BURST
 # single-RHS solves a tenant, coalesced within SERVE_WINDOW_S up to
 # SERVE_MAX_BATCH columns; each served solution is held within
@@ -3788,7 +4217,7 @@ def examples(card: str) -> dict:
                 procs[path.name] = subprocess.Popen(
                     [sys.executable, str(path)], cwd=ROOT, env=env,
                     stdout=f, stderr=subprocess.STDOUT)
-        require(len(procs) == 5, f"examples: found {sorted(procs)}")
+        require(len(procs) == 6, f"examples: found {sorted(procs)}")
         out = {}
         for name, proc in procs.items():
             proc.wait(timeout=EXAMPLES_TIMEOUT_S)
@@ -3878,18 +4307,22 @@ def main() -> int:
     torch.cuda.empty_cache()                    # 10. LM serving
     log(f"lm: device memory in use before the model "
         f"{torch.cuda.memory_allocated(dev) / 2 ** 20:.0f} MiB")
-    checks.update(flash_checks(dev, g))
-    lm = lm_serving(dev, args.seed)
-    lap("10 LM serving")
-    torch.cuda.empty_cache()                    # 10b. MoE and MLA serving
-    moe = moe_mla_serving(dev, args.seed, card)
-    lap("10b MoE and MLA")
-    torch.cuda.empty_cache()                    # 10c. SSM and hybrid
-    ssm = ssm_hybrid_serving(dev, args.seed, card)
-    lap("10c SSM and hybrid")
-    torch.cuda.empty_cache()                    # 10d. enc-dec, frontends
-    encdec = encdec_frontend_serving(dev, args.seed, card)
-    lap("10d encoder-decoder and frontend")
+    with torch.no_grad():                       # serving keeps no graph
+        checks.update(flash_checks(dev, g))
+        lm = lm_serving(dev, args.seed)
+        lap("10 LM serving")
+        torch.cuda.empty_cache()                # 10b. MoE and MLA serving
+        moe = moe_mla_serving(dev, args.seed, card)
+        lap("10b MoE and MLA")
+        torch.cuda.empty_cache()                # 10c. SSM and hybrid
+        ssm = ssm_hybrid_serving(dev, args.seed, card)
+        lap("10c SSM and hybrid")
+        torch.cuda.empty_cache()                # 10d. enc-dec, frontends
+        encdec = encdec_frontend_serving(dev, args.seed, card)
+        lap("10d encoder-decoder and frontend")
+    torch.cuda.empty_cache()                    # 10e. training
+    trained = training(dev, args.seed, card)
+    lap("10e training")
     torch.cuda.empty_cache()                    # 11. tuner and service
     ts = tuner_service(args.n, args.tb, dev, args.seed, card, main, checks,
                        trace_a)
@@ -3933,7 +4366,10 @@ def main() -> int:
             "calibration_launches": ts["calibration"]["launches"][name],
             "tuned_launches": ts["tuned"]["launches"][name],
             "served_launches": ts["serve"]["launches"][name],
-            "shim_launches": shim_res["launches"][name]})
+            "shim_launches": shim_res["launches"][name],
+            "training_launches": sum(
+                trained[run]["launches"][name] for run in
+                ("gemma3_f32", "gemma3_q8", "mamba2", "deepseek"))})
         for key in ("unfused_ms", "variant", "bound_ffma_pv_ms", "ffma_ms",
                     "split", "device_ms", "library_device_ms", "geometry",
                     "grid", "geo_f64_launches", "geo_f64_mid_ms",
@@ -3947,7 +4383,8 @@ def main() -> int:
         {"card": card, "build_s": build_s, "checks": checks, "main": main,
          "fused": fused, "mxp": mxp, "geo": geo_res, "multidevice": md,
          "trace": traced, "disk_tier": disk, "lm": lm, "moe": moe,
-         "ssm": ssm, "encdec": encdec, "tuner_service": ts,
+         "ssm": ssm, "encdec": encdec, "training": trained,
+         "tuner_service": ts,
          "baseline": base, "shim": shim_res, "examples": ex,
          "kernels": kernels, "phase_seconds": phase_s,
          "wall_s": time.perf_counter() - t_script}, indent=1))

@@ -9,13 +9,15 @@ checkpoint written by either package restores in the other.
   corrupts the latest checkpoint: ``latest_step`` ignores ``.tmp``
   leftovers.
 * **per-process files** — each process saves its host copy of every leaf
-  of the tree (nested dicts, lists and tuples of numpy arrays, tensors
-  on any device and scalars) as ``host_<p>.npz``, each under the
-  reference's leaf key (``"['slots']"``, ``"['a']/[0]"``; ``/`` written
-  as ``__``); restore reads the process's own file and casts each array
-  back to the target leaf's dtype, a tensor leaf coming back as a CPU
-  tensor.  The process index is the ``torch.distributed`` rank when a
-  process group is initialized, else 0.
+  of the tree (nested dicts, lists, tuples and NamedTuples of numpy
+  arrays, tensors on any device and scalars) as ``host_<p>.npz``, each
+  under the reference's leaf key (``"['slots']"``, ``"['a']/[0]"``, an
+  ``OptState``'s ``".m/['w']/.q"``; ``/`` written as ``__``); restore
+  reads the process's own file and casts each array back to the target
+  leaf's dtype, a tensor leaf coming back as a CPU tensor, and rebuilds
+  each node as the target's type (a NamedTuple from its fields).  The
+  process index is the ``torch.distributed`` rank when a process group is
+  initialized, else 0.
 * **preemption** — ``save_on_signal`` installs a SIGTERM handler that
   requests an immediate save at the next step boundary (the driving loop
   polls ``should_save_now``).
@@ -42,17 +44,30 @@ def _process_index() -> int:
     return 0
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def _children(tree):
+    """(key, subtree) pairs of a node in the reference's order and key
+    spelling, or None for a leaf."""
+    if isinstance(tree, dict):
+        return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (list, tuple)):
+        return [(f"[{i}]", v) for i, v in enumerate(tree)]
+    return None
+
+
 def _flatten_with_paths(tree, prefix: str = "") -> dict:
     """``{leaf key: leaf}`` in the reference's order and key spelling:
-    dict keys sorted and written ``['key']``, sequence positions ``[i]``,
-    joined by ``/``; None holds no leaf."""
+    dict keys sorted and written ``['key']``, NamedTuple fields ``.field``,
+    sequence positions ``[i]``, joined by ``/``; None holds no leaf."""
     if tree is None:
         return {}
-    if isinstance(tree, dict):
-        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
-        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
-    else:
+    items = _children(tree)
+    if items is None:
         return {prefix: tree}
     out = {}
     for name, sub in items:
@@ -66,14 +81,16 @@ def _unflatten(tree, arrays: dict, prefix: str = ""):
     cast to the leaf's dtype (a tensor leaf as a CPU tensor)."""
     if tree is None:
         return None
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], arrays,
-                              f"{prefix}/[{k!r}]" if prefix else f"[{k!r}]")
-                for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(
-            _unflatten(v, arrays, f"{prefix}/[{i}]" if prefix else f"[{i}]")
-            for i, v in enumerate(tree))
+    items = _children(tree)
+    if items is not None:
+        values = [_unflatten(sub, arrays, f"{prefix}/{name}" if prefix
+                             else name) for name, sub in items]
+        if isinstance(tree, dict):
+            by_key = dict(zip(sorted(tree), values))
+            return {k: by_key[k] for k in tree}
+        if _is_namedtuple(tree):
+            return type(tree)(*values)
+        return type(tree)(values)
     arr = arrays[prefix]
     if isinstance(tree, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(tree.dtype)

@@ -8,7 +8,10 @@ index: query head h reads KV head h // (H / KV)), which reads the model's
 [B, S, H, hd] layout as it is; on CPU tensors they run the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`.  ``bq`` and
 ``bk`` are checked as the reference checks them and do not change the
-result: the kernel picks its own tiles.
+result: the kernel picks its own tiles.  Neither kernel has a backward (nor
+has the reference's), so under grad, with an input that requires grad,
+both wrappers raise ``NotImplementedError`` on every device: training
+takes the chunked attention.
 
 Two kernels, chosen by dtype (:func:`variant`): bf16 inputs
 go to ``csrc/flash_wgmma.cu`` on the tensor cores (TMA-fed K/V tiles, Q K^T
@@ -80,6 +83,18 @@ def tc_kv_tiles(q0: int, rows: int, t: int, causal: bool, hd: int) -> int:
     return n
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    """The kernels have no backward, as the reference's ``_flash_kernel``
+    has none (no ``custom_vjp``; ``jax.grad`` through it fails): under
+    grad, with an input that requires grad, both wrappers raise on every
+    device rather than cut the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: no backward; the reference's _flash_kernel has none "
+            f"either. Train with use_flash_attention off (the chunked "
+            f"attention), or call under torch.no_grad()")
+
+
 def _check_blocks(s: int, t: int, bq: int, bk: int) -> None:
     bq, bk = min(bq, s), min(bk, t)
     if s % bq or t % bk:
@@ -143,6 +158,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     _check_blocks(s, t, bq, bk)
+    _refuse_grad("flash_attention", q, k, v)
     if not _build.on_cuda("flash_attention", q, k, v):
         return flash_attention_ref(q, k, v, causal=causal)
     return _launch(q, k, v, bh=bh, s=s, t=t, nh=1, nkv=1, group=bh // bkv,
@@ -181,7 +197,9 @@ def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, S, H, hd].  Heads are grouped kv-major (head h uses kv head
     h // (H // KV)), matching ``repro_torch.models.attention._sdpa``.
     ``kernel`` None takes :func:`variant`'s choice; ``"ffma"`` runs the FFMA
-    kernel on bf16 too (to time it beside the tensor-core one)."""
+    kernel on bf16 too (to time it beside the tensor-core one).  Under
+    grad it raises, as :func:`flash_attention` does."""
+    _refuse_grad("flash_gqa", q, k, v)
     if not _build.on_cuda("flash_gqa", q, k, v):
         return flash_gqa_ref(q, k, v, causal=causal, bq=bq, bk=bk)
     _check_gqa(q, k, v, bq, bk)

@@ -2,9 +2,10 @@
 ``repro.launch.serve``).
 
 As in the reference, the prompt is replayed into the decode cache token by
-token, and greedy tokens follow.  :func:`generate` makes the parameters and
-prompts from a seed on the device; :func:`decode_tokens` takes them, so a
-caller can hand it other weights and prompts.
+token, and greedy tokens follow, with no autograd graph.  :func:`generate`
+makes the parameters and prompts from a seed on the device;
+:func:`decode_tokens` takes them, so a caller can hand it other weights and
+prompts.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b
 """
@@ -22,6 +23,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import dtype_of
 
 
+@torch.no_grad()
 def decode_tokens(params, cfg, prompts: torch.Tensor, gen_len: int,
                   enc_out=None):
     """Replay ``prompts`` [B, P] through decode, then take ``gen_len`` greedy
@@ -56,6 +58,7 @@ def decode_tokens(params, cfg, prompts: torch.Tensor, gen_len: int,
     return tokens, tput, prompt_logits
 
 
+@torch.no_grad()
 def generate(arch: str = "gemma3-1b", smoke: bool = True, batch: int = 4,
              prompt_len: int = 16, gen_len: int = 16, seed: int = 0,
              device="cuda"):

@@ -7,7 +7,9 @@ reference's weights across is a plain copy (:mod:`repro_torch.convert`).
 Initialisation takes an explicit ``torch.Generator``: dense weights are
 normal x 1/sqrt(fan_in), with the fan-in of the reference's ``dense`` calls,
 and constants are zeros.  The two packages draw different numbers from one
-seed.  Parameters carry no gradient: the port serves and does not train.
+seed.  Parameters are built with ``requires_grad=False``, so serving never
+builds an autograd graph; the trainer (``repro_torch.launch.train``) turns
+gradients on with ``model.requires_grad_(True)``.
 """
 from __future__ import annotations
 

@@ -13,8 +13,10 @@ the activations' type.
 
 The reference's four-operand einsums are written here as products of two
 operands each, ordered so that no intermediate is larger than the
-[B, C, H, Q, Q] decay matrix, which is built in place (at jamba's widths,
-256 heads, one 2048-token row holds 0.54 GB of it in f32).  The decay
+[B, C, H, Q, Q] decay matrix (at jamba's widths, 256 heads, one
+2048-token row holds 0.54 GB of it in f32).  With no graph to record it is
+built in place; under autograd its product with C.B is taken out of place
+(exp's backward reads exp's output), so two are alive at once there.  The decay
 quantities use a [B, C, H, Q] layout (the reference's [B, H, C, Q] with C
 and H swapped), so the chunked products batch over (B, C, H) without a copy
 of the decay matrix.
@@ -94,7 +96,11 @@ def _intra_chunk(ac, bc, cc, xc):
     """The diagonal term: y[q] = sum_{s<=q} C_q.B_s exp(A_q - A_s) x_s in
     each chunk.  ac [B,C,H,Q]; bc, cc [B,C,Q,N]; xc [B,C,H,Q,P]."""
     l = _segsum(ac).exp_()                                  # [B,C,H,Q,Q]
-    l.mul_((cc @ bc.transpose(-1, -2)).unsqueeze(2))        # C_q . B_s
+    cb = (cc @ bc.transpose(-1, -2)).unsqueeze(2)           # C_q . B_s
+    if l.requires_grad or cb.requires_grad:
+        l = l * cb      # exp's backward reads exp's output: out of place
+    else:
+        l.mul_(cb)      # no graph: one decay matrix, built in place
     return l @ xc                                           # [B,C,H,Q,P]
 
 

@@ -5,8 +5,13 @@ encoder-decoder, frontends): prefill and decode paths (port of
 The reference splits the decoder into ``prefix`` layers, a region of
 identical groups of ``cfg.scan_group`` layers run by ``lax.scan`` over
 stacked parameters, and ``remainder`` layers (``_regions``).  Here every
-layer is a module of its own, in layer order, and the scan is a Python loop;
-remat has no meaning at inference.  Inside a scanned group the reference
+layer is a module of its own, in layer order, and the scan is a Python loop.
+Under grad with ``cfg.remat``, each scanned group runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
+body): its activations are recomputed in the backward pass; prefix and
+remainder layers keep theirs.  ``forward`` and ``apply_encoder`` build a
+graph when grad is on; ``decode_step`` never does, and the serving steps
+run under ``torch.no_grad()``.  Inside a scanned group the reference
 passes layer index ``base + j`` (j the position in the group) to every
 group, not the layer's absolute index, so ``layer_kind``,
 ``layer_is_moe`` and ``layer_window`` of scanned layers follow ``base + j``:
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_gqa
 
@@ -185,7 +191,6 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     return Model(cfg, gen, device)
 
 
-@torch.no_grad()
 def apply_encoder(params: Model, cfg: ModelConfig, enc_embeds):
     """The encoder's output [B, T, d] for ``enc_embeds`` [B, T, d] (the
     reference's ``_apply_encoder``): what ``decode_step`` takes as
@@ -200,15 +205,21 @@ def apply_encoder(params: Model, cfg: ModelConfig, enc_embeds):
     return rms_norm(x, params.enc_final_norm, cfg.norm_eps)
 
 
-@torch.no_grad()
+def _apply_layers(layers, cfg: ModelConfig, x, positions, enc_out, flash):
+    for i, lp in layers:
+        x = apply_layer(lp, cfg, i, x, positions, enc_out, flash=flash)
+    return x
+
+
 def forward(params: Model, cfg: ModelConfig, tokens, frontend_embeds=None,
             enc_embeds=None, flash=flash_gqa):
-    """Prefill forward pass -> final hidden states [B, S, d].
+    """Train/prefill forward pass -> final hidden states [B, S, d].
 
     ``frontend_embeds`` [B, n, d] take the place of the first n positions'
     token embeddings; an encoder-decoder model needs ``enc_embeds`` [B, T,
     d], which its encoder reads.  ``flash`` is the attention of the flash
-    path (see ``attention.apply_gqa``)."""
+    path (see ``attention.apply_gqa``).  Under grad with ``cfg.remat`` each
+    scanned group is rematerialised."""
     dtype = dtype_of(cfg.dtype)
     x = embed_tokens(params.embed, tokens, dtype)
     if frontend_embeds is not None:
@@ -222,8 +233,19 @@ def forward(params: Model, cfg: ModelConfig, tokens, frontend_embeds=None,
                              f"enc_embeds")
         enc_out = apply_encoder(params, cfg, enc_embeds.to(dtype))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i, lp in zip(params.layer_idx, params.layers):
-        x = apply_layer(lp, cfg, i, x, positions, enc_out, flash=flash)
+    layers = list(zip(params.layer_idx, params.layers))
+    pre, n_groups, _ = _regions(cfg)
+    g, stop = cfg.scan_group, len(pre) + n_groups * cfg.scan_group
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = _apply_layers(layers[:len(pre)], cfg, x, positions, enc_out, flash)
+    for start in range(len(pre), stop, g):
+        group = layers[start:start + g]
+        if remat:
+            x = checkpoint(_apply_layers, group, cfg, x, positions, enc_out,
+                           flash, use_reentrant=False)
+        else:
+            x = _apply_layers(group, cfg, x, positions, enc_out, flash)
+    x = _apply_layers(layers[stop:], cfg, x, positions, enc_out, flash)
     return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 

@@ -1555,3 +1555,105 @@ def test_cuda_shim_is_bitwise_the_planner_path(cuda):
                        (OpKind.SYRK, "syrk_update"), (OpKind.TRSM, "trsm"),
                        (OpKind.POTRF, "potrf")):
         assert launches[name] == sched.count(kind)
+
+
+# --------------------------------------------------------------------------
+# training: a train step on the card against the CPU, flash under grad,
+# resume
+# --------------------------------------------------------------------------
+
+# chip_smoke.py's phase 10e bounds: each gradient at its own scale within
+# 1e-3 of the CPU's (f32, TF32 off), the loss and grad_norm within 1e-4,
+# the parameters after a step within 0.2 lr where the gradient is not near
+# 0; a zeroed mixer gradient reads 1.
+_TRAIN_GRAD_TOL = 1e-3
+_TRAIN_LOSS_TOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_gemma3_smoke_train_step_against_cpu(cuda):
+    """gemma3's smoke model (a scanned group of 6 under remat, 2 more
+    layers, tied embeddings), two train steps of 2 microbatches on the card
+    and on the CPU from the same weights and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("gemma3-1b", smoke=True)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 33)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    host = T.init_model(cfg, seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        model = T.Model(cfg, None, "meta")
+        model.load_state_dict({k: v.clone().to(dev) for k, v in
+                               host.state_dict().items()}, assign=True)
+        model.requires_grad_(True)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, grads = loss_and_grads(model, cfg, b)
+        step = make_train_step(cfg, lr=1e-3, accum_steps=2)
+        opt = adamw_init(model)
+        metrics = []
+        for _ in range(2):
+            model, opt, m = step(model, opt, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[str(dev)] = (float(loss), grads, metrics)
+    (l0, g0, m0), (l1, g1, m1) = out["cpu"], out[str(cuda)]
+    assert abs(l1 - l0) <= _TRAIN_LOSS_TOL * abs(l0)
+    for a, b in zip(m0, m1):
+        for k in a:
+            assert abs(a[k] - b[k]) <= _TRAIN_LOSS_TOL * abs(a[k]), (k, a, b)
+    for k, g in g0.items():
+        scale = float(g.abs().max())
+        d = float((g1[k].cpu() - g).abs().max())
+        assert d <= _TRAIN_GRAD_TOL * max(scale, 1e-30), k
+        if k.endswith(("attn.wq", "attn.wk", "attn.wv")):
+            # a zeroed gradient (a kernel that cuts it) fails the bound
+            assert float(g1[k].abs().max()) > _TRAIN_GRAD_TOL * scale > 0, k
+
+
+@pytest.mark.cuda
+def test_cuda_flash_raises_under_grad(cuda):
+    """Neither flash kernel has a backward: with an input that requires
+    grad both wrappers raise on the card; under no_grad they launch."""
+    from repro_torch.kernels import flash_attention as F
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(1, 128, 2, 64, generator=g, device=cuda,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    k = torch.randn(1, 128, 1, 64, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    ops.reset_counts()
+    with pytest.raises(NotImplementedError, match="_flash_kernel"):
+        F.flash_gqa(q, k, k)
+    with pytest.raises(NotImplementedError, match="_flash_kernel"):
+        F.flash_attention(q[0].transpose(0, 1), k[0].transpose(0, 1),
+                          k[0].transpose(0, 1))
+    assert F.launches == 0
+    with torch.no_grad():
+        out = F.flash_gqa(q, k, k)
+    assert F.launches == 1 and out.grad_fn is None
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_smoke_resume_is_bitwise(cuda, tmp_path):
+    """mamba2's smoke model through ``launch.train.train`` on the card: four
+    steps straight against two, a checkpoint and a resume to four, with Q8
+    moments: the parameters bitwise."""
+    import signal
+
+    from repro_torch.launch.train import train
+    old = signal.getsignal(signal.SIGTERM)
+    kw = dict(arch="mamba2-130m", smoke=True, batch=4, seq=32,
+              quantized_opt=True, save_every=2, device=cuda)
+    try:
+        want, losses = train(**kw, steps=4, ckpt_dir=str(tmp_path / "a"))
+        train(**kw, steps=2, ckpt_dir=str(tmp_path / "b"))
+        got, resumed = train(**kw, steps=4, ckpt_dir=str(tmp_path / "b"))
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    assert resumed == losses[2:]
+    for (k, a), b in zip(want.state_dict().items(),
+                         got.state_dict().values()):
+        assert torch.equal(a, b), k

@@ -27,6 +27,8 @@ EXAMPLES = {
                                "measured model: measured-cpu",
                                "tuned for THIS machine:"]),
     "torch_serve_lm.py": ([], ["[serve] gemma3-1b: batch 8"]),
+    "torch_train_lm.py": (["--steps", "3", "--batch", "2", "--seq", "32"],
+                          ["[example] loss"]),
 }
 
 _BLOCKED = """

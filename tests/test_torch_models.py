@@ -562,15 +562,32 @@ def test_decode_tokens_with_enc_out(arch):
 
 
 @pytest.mark.parametrize("entry", ["loss_fn", "make_train_step"])
-def test_training_entry_points_raise(entry):
-    """Training is the next slice: its entry points name ROADMAP item
-    13.5."""
-    cfg = configs.get_config("qwen3-14b", smoke=True)
-    with pytest.raises(NotImplementedError, match="13.5"):
-        if entry == "loss_fn":
-            steps.loss_fn(None, cfg, {})
-        else:
-            steps.make_train_step(cfg)
+def test_training_entry_points(entry):
+    """Training is ported (``tests/test_torch_train.py`` holds it against
+    the reference): ``loss_fn`` equals the reference's and builds a graph;
+    a train step moves every parameter and returns finite metrics."""
+    cfg, jparams, port = _ref_model("qwen3_14b")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 17)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    port.requires_grad_(True)
+    if entry == "loss_fn":
+        got = steps.loss_fn(port, cfg, tb)
+        want = jsteps.loss_fn(jparams, cfg, {k: jnp.asarray(v)
+                                             for k, v in batch.items()})
+        assert got.grad_fn is not None
+        _close(got, want)
+    else:
+        from repro_torch.optim import adamw_init
+        before = {k: v.detach().clone() for k, v in port.state_dict().items()}
+        _, opt, metrics = steps.make_train_step(cfg, lr=1e-3)(
+            port, adamw_init(port), tb)
+        assert int(opt.step) == 1
+        assert all(np.isfinite(float(v)) for v in metrics.values())
+        assert float(metrics["grad_norm"]) > 0
+        assert all(not torch.equal(v, before[k])
+                   for k, v in port.state_dict().items())
 
 
 def test_cpu_path_launches_no_kernel():
