@@ -226,12 +226,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    skipped on two or more); then every ``examples/torch_*.py`` at its
    defaults on the card, all at once, each of which must exit 0 (their
    output in ``chiprun_out/examples/``);
-13. the kernels line (JSON; each kernel also with its launches in config
+13. the sharded path (``repro_torch.distributed``): on a (1, 1) ("data",
+   "model") mesh over a one-rank NCCL group, qwen3-14b whole with its
+   parameters made DTensors in place (no copy), phase 10's 4 x 2048
+   prefill through the DTensor path with the flash kernel on each rank's
+   head block: 40 tensor-core launches, the logits bitwise phase 10's;
+   decode on caches laid out by ``cache_shardings``, its tokens equal to
+   the unsharded ``decode_tokens``' on the same prompts; gemma3-1b trained
+   6 steps through ``train(mesh=)`` against phase 10e's unsharded losses
+   (step 0 bitwise, the rest within SHARDED_TRAIN_REL); the int8
+   compression of its gradients on the card bitwise the CPU's.  With four
+   cards, a 2 x 2 mesh over four NCCL processes (this script with
+   ``--sharded-worker``): gemma3-1b's steps, qwen3-14b's prefill and
+   decode at 20/4 heads a rank against the one-card readings, and the
+   int8 payload sum over a two-rank "pod" group bitwise the local sum; on
+   one card that part is logged as skipped, not passed;
+14. the kernels line (JSON; each kernel also with its launches in config
    A, in the disk tier, in calibration, in the tuned factor, in the
    served pair, through the shim and in phase 10e's training steps, all
    0 there; flash attention also with dbrx's, seamless's and llava's
-   prefill's), each phase's seconds, the script's
-   wall time, and the last line,
+   prefill's and the sharded prefill's), each phase's seconds, the
+   script's wall time, and the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  It writes the results to
@@ -2481,9 +2496,11 @@ def decode_windows(params, cfg, batch: int, prompt_len: int, gen_len: int,
     return out
 
 
-def lm_serving(dev, seed: int) -> dict:
+def lm_serving(dev, seed: int, handoff: dict | None = None) -> dict:
     """qwen3-14b's serving path: prefill through the flash kernel, the same
-    step with the plain attention, and the decode server."""
+    step with the plain attention, and the decode server.  ``handoff``
+    receives ``"prefill"``: the prefill's tokens and its logits on the host,
+    which phase 13 holds its sharded prefill to."""
     import dataclasses
 
     import repro_torch
@@ -2536,6 +2553,8 @@ def lm_serving(dev, seed: int) -> dict:
         f"max|logit| {scale:.3f} (bound {PREFILL_REL_BOUND:.4f}); top-1 "
         f"agrees in {same}/{batch} rows")
     require(diff <= PREFILL_REL_BOUND * scale, f"prefill vs plain {diff}")
+    if handoff is not None:
+        handoff["prefill"] = (tokens, logits.cpu())
     del logits
     controls = {}
     for name, attn in faults.items():
@@ -4237,6 +4256,353 @@ def examples(card: str) -> dict:
     return out
 
 
+# Phase 13, the sharded path (``repro_torch.distributed``).  Its decode
+# replays a SHARDED_PROMPT-token prompt and takes SHARDED_GEN greedy tokens:
+# a DTensor decode step sends each op through DTensor's dispatch, so the
+# replay is shorter than phase 10's 128 tokens, and its tokens are held
+# equal to ``decode_tokens``' unsharded ones on the same prompts.
+# gemma3-1b's sharded steps against phase 10e's: step 0 bitwise (the
+# forward is), later steps within SHARDED_TRAIN_REL relative: with one kv
+# head the key's gradient block comes back through DTensor with another
+# stride on its size-1 head dimension, and the rope and norm backward
+# order their sums by stride (one ulp of the loss at step 2 in a CPU
+# rehearsal at smoke size in f32; 1.2e-4 on the card in a first run), and
+# AdamW turns ulp-level gradient differences into moves of up to 2 LR
+# where |g| is near eps (tests/test_torch_train.py).  Its
+# gradients for the compression check: SHARDED_GRAD_ROWS x TRAIN_SEQ
+# tokens.  On four cards (2 x 2), the sums over "model" add bf16 partial
+# products in another order than one card's single product: qwen3-14b's
+# logits are held within phase 10's PREFILL_REL_BOUND and
+# REPLAY_REL_BOUND (bf16 reorderings of attention), gemma3-1b's first
+# FOUR_CARD_STEPS losses within FOUR_CARD_LOSS_REL of the one-card ones.
+SHARDED_PROMPT, SHARDED_GEN = 16, 8
+SHARDED_TRAIN_REL = 1e-3
+SHARDED_GRAD_ROWS = 2
+FOUR_CARD_STEPS = 3
+FOUR_CARD_LOSS_REL = 1e-2
+FOUR_CARD_TIMEOUT_S = 900
+
+
+def sharded_serving(cfg, dev, seed: int, mesh, prompts, prefill10) -> dict:
+    """13a: qwen3-14b made on the card, its unsharded decode of
+    ``prompts``, then its parameters as DTensors in place, phase 10's
+    prefill (``prefill10``: its tokens and logits) through the sharded
+    path (40 tensor-core flash launches, the logits bitwise phase 10's)
+    and the sharded decode (tokens equal)."""
+    import repro_torch
+    from repro_torch.distributed.sharding import (P, activation_sharding,
+                                                  distribute,
+                                                  distribute_model, full)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import decode_tokens
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    tokens, want = prefill10
+    n_layers = cfg.num_layers
+    only_flash = {**dict.fromkeys(repro_torch.launch_counts(), 0),
+                  "flash_attention": n_layers}
+    only_tc = {"tensor_core": n_layers, "ffma": 0}
+    params = T.init_model(cfg, seed, dev)
+    plain_tok, _, plain_pl = decode_tokens(params, cfg, prompts,
+                                           SHARDED_GEN)
+    mem0 = torch.cuda.memory_allocated(dev)
+    distribute_model(params, mesh)
+    moved = torch.cuda.memory_allocated(dev) - mem0
+    log(f"sharded: {cfg.name} parameters as DTensors on mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: device memory "
+        f"{moved / 2 ** 20:+.1f} MiB")
+    require(abs(moved) < 2 ** 20, f"distribute_model copied {moved} bytes")
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": distribute(tokens, P("data", None), mesh)}
+    seconds = []
+    with torch.no_grad(), activation_sharding(mesh):
+        for _ in range(2):
+            repro_torch.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = full(prefill(params, batch))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            launches = repro_torch.launch_counts()
+            variants = ops.flash_variant_counts()
+            require(launches == only_flash,
+                    f"sharded prefill launches {launches} != {only_flash}")
+            require(variants == only_tc,
+                    f"sharded prefill flash variants {variants}")
+    same = torch.equal(logits.cpu(), want)
+    diff = (logits.cpu().float() - want.float()).abs().max().item()
+    log(f"sharded: prefill {tuple(tokens.shape)} through the DTensor path "
+        f"in {seconds[0]:.3f}s then {seconds[1]:.3f}s (phase 10 "
+        f"unsharded); launches {launches}, flash variants {variants}; "
+        f"logits bitwise phase 10's: {same} (max|diff| {diff:.3e})")
+    require(same, f"sharded prefill logits differ from phase 10's by {diff}")
+    t0 = time.perf_counter()
+    got_tok, _, got_pl = decode_tokens(params, cfg, prompts, SHARDED_GEN,
+                                       mesh=mesh)
+    decode_s = time.perf_counter() - t0
+    tok_same = bool((got_tok == plain_tok).all())
+    pl_same = torch.equal(got_pl.cpu(), plain_pl.cpu())
+    log(f"sharded: decode {tuple(prompts.shape)} prompt + {SHARDED_GEN} "
+        f"tokens on cache_shardings' caches in {decode_s:.2f}s; tokens "
+        f"equal decode_tokens': {tok_same}; prompt logits bitwise: "
+        f"{pl_same}")
+    require(tok_same, "sharded decode tokens differ from decode_tokens'")
+    del params
+    return {"prefill_s": seconds, "prefill_launches": launches,
+            "prefill_flash_variants": variants, "logits_bitwise": same,
+            "decode_s": decode_s, "decode_tokens_equal": tok_same,
+            "decode_prompt_logits_bitwise": pl_same,
+            "tokens": got_tok.tolist(), "prompt_logits": got_pl.cpu(),
+            "logits": logits.cpu()}
+
+
+def sharded_training(dev, seed: int, mesh, want: list) -> tuple:
+    """13b: gemma3-1b trained TRAIN_STEPS steps through ``train(mesh=)``
+    on phase 10e's batches; returns (readings, the trained model)."""
+    import repro_torch
+    from repro_torch.launch.train import train
+    rows, accum = GEMMA3_TRAIN
+    repro_torch.reset_counts()
+    t0 = time.perf_counter()
+    params, losses = train("gemma3-1b", smoke=False, steps=TRAIN_STEPS,
+                           batch=rows, seq=TRAIN_SEQ, lr=TRAIN_LR, mesh=mesh,
+                           accum_steps=accum, seed=seed, device=dev,
+                           log_every=1)
+    secs = time.perf_counter() - t0
+    launches = repro_torch.launch_counts()
+    bitwise = losses == want
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    log(f"sharded: gemma3-1b {TRAIN_STEPS} steps through train(mesh=) in "
+        f"{secs:.1f}s; losses {losses}; phase 10e's {want}; bitwise "
+        f"{bitwise}; max relative difference {max(rel):.3e} (bound "
+        f"{SHARDED_TRAIN_REL:.0e}, step 0 bitwise)")
+    require(len(losses) == len(want) and losses[0] == want[0],
+            f"sharded step 0 loss {losses[0]!r} != {want[0]!r}")
+    require(max(rel) <= SHARDED_TRAIN_REL, f"sharded losses {rel}")
+    require(set(launches.values()) == {0}, f"training launched {launches}")
+    return {"losses": losses, "unsharded_losses": want,
+            "losses_bitwise": bitwise, "max_rel_diff": max(rel),
+            "bound_rel": SHARDED_TRAIN_REL, "seconds": secs,
+            "launches": launches}, params
+
+
+def sharded_compression(params, dev, seed: int, mesh) -> dict:
+    """13c: gemma3-1b's gradients (from the sharded model) compressed on
+    the card and on the CPU: every output and residual bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.distributed.sharding import (P, activation_sharding,
+                                                  distribute, full)
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import device_batch
+    from repro_torch.optim.compress import compress_pod_gradients, ef_init
+    cfg = get_config("gemma3-1b")
+    batch = device_batch(next(DataPipeline(cfg.vocab, TRAIN_SEQ,
+                                           SHARDED_GRAD_ROWS, seed=seed)),
+                         dev)
+    with activation_sharding(mesh):
+        _, grads = loss_and_grads(params, cfg, {
+            k: distribute(v, P("data", None), mesh)
+            for k, v in batch.items()})
+    grads = {k: full(g) for k, g in grads.items()}
+    del params
+    t0 = time.perf_counter()
+    card_out, card_ef = compress_pod_gradients(grads, ef_init(grads))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host = {k: g.cpu() for k, g in grads.items()}
+    del grads
+    t0 = time.perf_counter()
+    cpu_out, cpu_ef = compress_pod_gradients(host, ef_init(host))
+    cpu_s = time.perf_counter() - t0
+    differ = [k for k in host if not (
+        torch.equal(card_out[k].cpu(), cpu_out[k])
+        and torch.equal(card_ef[k].cpu(), cpu_ef[k]))]
+    n = sum(g.numel() for g in host.values())
+    log(f"sharded: compress_pod_gradients of {len(host)} gemma3-1b "
+        f"gradients ({n:,} entries) on the card in {card_s:.3f}s, on the "
+        f"CPU in {cpu_s:.2f}s; outputs and residuals bitwise: "
+        f"{not differ}")
+    require(not differ, f"compression differs card vs CPU: {differ[:5]}")
+    return {"tensors": len(host), "entries": n, "card_s": card_s,
+            "cpu_s": cpu_s, "bitwise": not differ}
+
+
+def _local_pod_sum(gs: list) -> torch.Tensor:
+    """The two-rank compression of ``gs`` computed locally: common block
+    scales, the int8 payloads summed exactly, the mean."""
+    from repro_torch.optim.compress import _blockify, _deblockify
+    blocks = [_blockify(g.float())[0] for g in gs]
+    scale = torch.maximum(*(b.abs().amax(-1) / torch.full_like(b[..., 0],
+                                                                127.0)
+                            for b in blocks))
+    safe = torch.where(scale == 0, 1.0, scale)[..., None]
+    q = sum(torch.clamp(torch.round(b / safe), -127, 127) for b in blocks)
+    r = q * safe
+    return _deblockify(r / torch.full_like(r, len(gs)), gs[0].shape[-1])
+
+
+def sharded_worker(rank: int, d: str, seed: int) -> int:
+    """One of four processes of 13d, on card ``rank``: a 2 x 2 mesh over
+    NCCL; gemma3-1b's first FOUR_CARD_STEPS steps, qwen3-14b's prefill and
+    decode, the int8 sum over a two-rank "pod" group.  Rank 0 writes the
+    readings to ``d``."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (P, activation_sharding,
+                                                  distribute,
+                                                  distribute_model, full)
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.serve import decode_tokens
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.compress import compress_pod_gradients
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                            rank=rank, world_size=4)
+    mesh = make_smoke_mesh((2, 2), ("data", "model"))
+    ref = torch.load(f"{d}/ref.pt")
+    out = {}
+    rows, accum = GEMMA3_TRAIN
+    _, out["losses"] = train("gemma3-1b", smoke=False, steps=FOUR_CARD_STEPS,
+                             batch=rows, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                             mesh=mesh, accum_steps=accum, seed=seed,
+                             device=dev, log_every=1)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen3-14b"),
+                              use_flash_attention=True)
+    params = distribute_model(T.init_model(cfg, seed, dev), mesh)
+    wq = params.layers[0].attn.wq.to_local()
+    out["local_heads"] = [wq.shape[1], params.layers[0].attn.wk.to_local()
+                          .shape[1]]
+    tokens = ref["tokens"].to(dev)
+    with torch.no_grad(), activation_sharding(mesh):
+        out["logits"] = full(make_prefill_step(cfg)(params, {
+            "tokens": distribute(tokens, P("data", None), mesh)})).cpu()
+    toks, _, pl = decode_tokens(params, cfg, ref["prompts"].to(dev),
+                                SHARDED_GEN, mesh=mesh)
+    out["tokens"], out["prompt_logits"] = toks.tolist(), pl.cpu()
+    del params
+    # int8 payloads over the "pod" pairs (0, 2) and (1, 3)
+    pods = [dist.new_group([0, 2]), dist.new_group([1, 3])]
+    g = torch.Generator(device=dev)
+    gs = [torch.randn((64, 1152), generator=g.manual_seed(seed + r),
+                      device=dev) * 3 for r in range(4)]
+    mine = compress_pod_gradients({"w": gs[rank]},
+                                  {"w": torch.zeros_like(gs[rank])},
+                                  group=pods[rank % 2])[0]["w"]
+    want = _local_pod_sum([gs[rank % 2], gs[rank % 2 + 2]])
+    out["pod_bitwise"] = bool(torch.equal(mine, want))
+    flags = torch.tensor([out["pod_bitwise"]], device=dev, dtype=torch.int32)
+    dist.all_reduce(flags, op=dist.ReduceOp.MIN)
+    out["pod_bitwise_all"] = bool(flags.item())
+    if rank == 0:
+        torch.save(out, f"{d}/out.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_four_cards(seed: int, card: str, serve: dict,
+                       train_losses: list, prompts, tokens) -> dict:
+    """13d, where the machine has four cards: the four workers (phase 10's
+    prefill ``tokens``, 13a's decode ``prompts``), and their readings
+    against 13a's and 13b's."""
+    import tempfile
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"sharded: 2 x 2 mesh skipped: {n} card(s), it needs 4 (not "
+            f"counted as a pass)")
+        return {"skipped": f"{n} card(s)"}
+    from repro_torch.configs import get_config
+    vocab = get_config("qwen3-14b").vocab
+    with tempfile.TemporaryDirectory() as d:
+        torch.save({"tokens": tokens.cpu(), "prompts": prompts.cpu()},
+                   f"{d}/ref.pt")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__)),
+                                   "--sharded-worker", str(r), d,
+                                   "--seed", str(seed)]) for r in range(4)]
+        codes = []
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=FOUR_CARD_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                codes.append(None)
+        secs = time.perf_counter() - t0
+        require(codes == [0] * 4, f"four-card workers exited {codes}")
+        out = torch.load(f"{d}/out.pt")
+    ld, ls, lsame = _logit_diff(out["logits"], serve["logits"], vocab)
+    pd, ps, psame = _logit_diff(out["prompt_logits"][:, 0],
+                                serve["prompt_logits"][:, 0], vocab)
+    tok_agree = float(np.mean(np.array(out["tokens"])
+                              == np.array(serve["tokens"])))
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"], train_losses)]
+    log(f"sharded: 2 x 2 on four cards [{card}] in {secs:.1f}s; qwen3-14b "
+        f"heads a rank (q, kv) {out['local_heads']}; prefill logits "
+        f"max|diff| {ld / ls:.4f} x max|logit| (bound {PREFILL_REL_BOUND}), "
+        f"top-1 agrees in {lsame} rows; decode prompt logits {pd / ps:.4f} "
+        f"x (bound {REPLAY_REL_BOUND}), tokens agree {tok_agree:.3f}; "
+        f"gemma3-1b losses {out['losses']} against {train_losses[:FOUR_CARD_STEPS]}"
+        f" (max relative {max(rel):.3e}, bound {FOUR_CARD_LOSS_REL}); int8 "
+        f"pod sums bitwise the local sums: {out['pod_bitwise_all']}")
+    require(out["local_heads"] == [20, 4], f"heads {out['local_heads']}")
+    require(ld <= PREFILL_REL_BOUND * ls, f"four-card prefill {ld}")
+    require(pd <= REPLAY_REL_BOUND * ps, f"four-card decode {pd}")
+    require(max(rel) <= FOUR_CARD_LOSS_REL, f"four-card losses {rel}")
+    require(out["pod_bitwise_all"], "int8 pod sum differs from the local")
+    return {"seconds": secs, "local_heads": out["local_heads"],
+            "prefill_rel_diff": ld / ls, "prefill_top1_agree": lsame,
+            "decode_rel_diff": pd / ps, "decode_token_agree": tok_agree,
+            "losses": out["losses"], "loss_rel_diff": max(rel),
+            "pod_bitwise": out["pod_bitwise_all"]}
+
+
+def sharded(dev, seed: int, card: str, trained: dict, prefill10) -> dict:
+    """Phase 13: the sharded path on a (1, 1) mesh over a one-rank NCCL
+    group (13a-c), then on four cards where there are four (13d).
+    ``trained``: phase 10e's readings; ``prefill10``: phase 10's prefill
+    tokens and logits."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    t_phase = time.perf_counter()
+    mesh = make_smoke_mesh((1, 1), ("data", "model"))
+    cfg = dataclasses.replace(get_config("qwen3-14b"),
+                              use_flash_attention=True)
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    prompts = torch.randint(0, cfg.vocab, (4, SHARDED_PROMPT), generator=g,
+                            device=dev)
+    out = {"card": card}
+    serve = sharded_serving(cfg, dev, seed, mesh, prompts, prefill10)
+    lap_s = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    want = trained["gemma3_f32"]["losses"]
+    out["train"], params = sharded_training(dev, seed, mesh, want)
+    torch.cuda.empty_cache()
+    out["compress"] = sharded_compression(params, dev, seed, mesh)
+    del params
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    out["four_cards"] = sharded_four_cards(seed, card, serve,
+                                           out["train"]["losses"], prompts,
+                                           prefill10[0])
+    out["serve"] = {k: v for k, v in serve.items()
+                    if k not in ("prompt_logits", "logits")}
+    out["serve"]["seconds"] = lap_s
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"sharded: phase 13 [{card}] took {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -4245,7 +4611,13 @@ def main() -> int:
     ap.add_argument("--geo-n", type=int, default=16384)
     ap.add_argument("--spill-n", type=int, default=16384)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sharded-worker", nargs=2, metavar=("RANK", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sharded_worker:
+        sys.path.insert(0, str(ROOT / "src"))
+        return sharded_worker(int(args.sharded_worker[0]),
+                              args.sharded_worker[1], args.seed)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "a card", file=sys.stderr)
@@ -4309,7 +4681,8 @@ def main() -> int:
         f"{torch.cuda.memory_allocated(dev) / 2 ** 20:.0f} MiB")
     with torch.no_grad():                       # serving keeps no graph
         checks.update(flash_checks(dev, g))
-        lm = lm_serving(dev, args.seed)
+        handoff = {}
+        lm = lm_serving(dev, args.seed, handoff)
         lap("10 LM serving")
         torch.cuda.empty_cache()                # 10b. MoE and MLA serving
         moe = moe_mla_serving(dev, args.seed, card)
@@ -4333,6 +4706,9 @@ def main() -> int:
     shim_res = shim(args.mxp_n, args.tb, dev, args.seed, card)
     ex = examples(card)
     lap("12 baseline, shim, examples")
+    torch.cuda.empty_cache()                    # 13. the sharded path
+    shard = sharded(dev, args.seed, card, trained, handoff["prefill"])
+    lap("13 sharded")
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -4349,7 +4725,9 @@ def main() -> int:
                    "seamless_prefill_launches":
                    encdec["seamless"]["prefill_launches"][name],
                    "llava_prefill_launches":
-                   encdec["llava"]["prefill_launches"][name]}
+                   encdec["llava"]["prefill_launches"][name],
+                   "sharded_prefill_launches":
+                   shard["serve"]["prefill_launches"][name]}
             launches = lm["prefill_launches"][name]
         else:
             row = checks[f"{name}[float32]"]
@@ -4374,7 +4752,7 @@ def main() -> int:
                     "split", "device_ms", "library_device_ms", "geometry",
                     "grid", "geo_f64_launches", "geo_f64_mid_ms",
                     "dbrx_prefill_launches", "seamless_prefill_launches",
-                    "llava_prefill_launches"):
+                    "llava_prefill_launches", "sharded_prefill_launches"):
             if key in row:
                 kernels[-1][key] = row[key]
     outdir = ROOT / "chiprun_out"
@@ -4386,13 +4764,13 @@ def main() -> int:
          "ssm": ssm, "encdec": encdec, "training": trained,
          "tuner_service": ts,
          "baseline": base, "shim": shim_res, "examples": ex,
-         "kernels": kernels, "phase_seconds": phase_s,
+         "sharded": shard, "kernels": kernels, "phase_seconds": phase_s,
          "wall_s": time.perf_counter() - t_script}, indent=1))
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     log(f"chip_smoke: wall time {time.perf_counter() - t_script:.1f}s")
     log(card)
-    print(json.dumps({"kernels": kernels}))     # 13. kernels line
+    print(json.dumps({"kernels": kernels}))     # 14. kernels line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

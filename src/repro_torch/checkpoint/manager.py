@@ -17,7 +17,9 @@ checkpoint written by either package restores in the other.
   leaf's dtype, a tensor leaf coming back as a CPU tensor, and rebuilds
   each node as the target's type (a NamedTuple from its fields).  The
   process index is the ``torch.distributed`` rank when a process group is
-  initialized, else 0.
+  initialized, else 0; with more than one process, process 0 renames the
+  directory after a barrier (the reference leaves that sync to the
+  caller).
 * **preemption** — ``save_on_signal`` installs a SIGTERM handler that
   requests an immediate save at the next step boundary (the driving loop
   polls ``should_save_now``).
@@ -42,6 +44,13 @@ def _process_index() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+def _world_size() -> int:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 def _is_namedtuple(tree) -> bool:
@@ -143,6 +152,9 @@ class CheckpointManager:
             arrays[key.replace("/", "__")] = arr
             meta[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
         np.savez(os.path.join(tmp, f"host_{proc}.npz"), **arrays)
+        if _world_size() > 1:
+            # every process's file is in tmp before process 0 renames it
+            torch.distributed.barrier()
         if proc == 0:
             # shared metadata is written once, by process 0 only
             if extra is not None:

@@ -21,6 +21,7 @@ import torch
 
 from .core.api import CholeskyConfig
 from .core.precision import PrecisionPlan
+from .models.layers import param_axes, set_param_axes
 from .models.transformer import Model, _regions
 from .optim import OptState, Q8
 
@@ -118,8 +119,9 @@ def params_from_reference(tree: dict, cfg, device="cuda") -> Model:
     ``enc_final_norm`` come across under the same names."""
     state = {k: _tensor(v, device) for k, v in _flat_state(tree, cfg).items()}
     model = Model(cfg, None, "meta")
+    axes = param_axes(model)
     model.load_state_dict(state, strict=True, assign=True)
-    return model
+    return set_param_axes(model, axes)
 
 
 def opt_state_from_reference(opt, cfg, device="cuda") -> OptState:

@@ -12,12 +12,16 @@ prompts.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import (P, activation_sharding,
+                                              distribute, dp_entry, full)
+from repro_torch.launch.specs import cache_shardings
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import dtype_of
@@ -25,35 +29,48 @@ from repro_torch.models.layers import dtype_of
 
 @torch.no_grad()
 def decode_tokens(params, cfg, prompts: torch.Tensor, gen_len: int,
-                  enc_out=None):
+                  enc_out=None, mesh=None):
     """Replay ``prompts`` [B, P] through decode, then take ``gen_len`` greedy
     tokens; every step of an encoder-decoder model cross-attends to
     ``enc_out`` where it is given.  Returns (tokens [B, gen_len] as numpy,
     decode tokens/s of the generation loop, the logits after the prompt
-    [B, 1, padded_vocab])."""
+    [B, 1, padded_vocab]).
+
+    ``mesh``: ``params`` are DTensors on it (``distribute_model``); the
+    cache is laid out by ``specs.cache_shardings``, each step's token
+    split over the DP axes, and the steps run under
+    ``activation_sharding(mesh)``; the prompt logits come back whole."""
     batch, prompt_len = prompts.shape
     max_len = prompt_len + gen_len
     dev = prompts.device
     cache = T.init_cache(cfg, batch, max_len, dtype_of(cfg.dtype), dev)
     serve = make_serve_step(cfg)
+    put, ctx = (lambda t: t), contextlib.nullcontext()
+    if mesh is not None:
+        cache = [{k: distribute(t, sh[k], mesh) for k, t in c.items()}
+                 for c, sh in zip(cache, cache_shardings(cfg, cache, mesh))]
+        tok_spec = P(dp_entry(mesh, batch), None)
+        put = lambda t: distribute(t, tok_spec, mesh)      # noqa: E731
+        ctx = activation_sharding(mesh)
 
-    logits = None
-    for pos in range(prompt_len):
-        logits, cache = serve(params, cache, prompts[:, pos:pos + 1], pos,
-                              enc_out)
-    prompt_logits = logits
-    tok = torch.argmax(logits[..., :cfg.vocab], dim=-1)
+    with ctx:
+        logits = None
+        for pos in range(prompt_len):
+            logits, cache = serve(params, cache, put(prompts[:, pos:pos + 1]),
+                                  pos, enc_out)
+        prompt_logits = full(logits)
+        tok = torch.argmax(prompt_logits[..., :cfg.vocab], dim=-1)
 
-    out = [tok]
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for pos in range(prompt_len, max_len - 1):
-        logits, cache = serve(params, cache, tok, pos, enc_out)
-        tok = torch.argmax(logits[..., :cfg.vocab], dim=-1)
-        out.append(tok)
-    tokens = torch.cat(out, dim=1).cpu().numpy()
-    dt = time.perf_counter() - t0
+        out = [tok]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for pos in range(prompt_len, max_len - 1):
+            logits, cache = serve(params, cache, put(tok), pos, enc_out)
+            tok = torch.argmax(full(logits)[..., :cfg.vocab], dim=-1)
+            out.append(tok)
+        tokens = torch.cat(out, dim=1).cpu().numpy()
+        dt = time.perf_counter() - t0
     tput = batch * (gen_len - 1) / max(dt, 1e-9)
     return tokens, tput, prompt_logits
 

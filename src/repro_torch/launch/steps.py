@@ -5,7 +5,10 @@ Factories close over the static config and return plain functions of
 (params, ...) -> tensors.  The train step differentiates ``loss_fn`` with
 ``torch.autograd.grad`` (the parameters must require grad:
 ``model.requires_grad_(True)``) and updates the parameters in place; the
-prefill and decode steps build no graph.
+prefill and decode steps build no graph.  The steps take DTensor
+parameters and inputs as well (``distributed.sharding.distribute_model``):
+run them inside ``activation_sharding(mesh)``; the train step's metrics
+come back as plain tensors.
 
 Gradient accumulation: ``accum_steps > 1`` splits the batch into
 contiguous microbatches and sums their f32 gradients, each divided by
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import full, like_param
 from repro_torch.kernels.flash_attention import flash_gqa
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -40,7 +44,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
 def loss_and_grads(params, cfg: ModelConfig, batch: dict):
     """(the loss, {name: its gradient}) of ``loss_fn`` at ``params``, whose
     parameters must require grad; a parameter the loss does not reach gets
-    zeros, as ``jax.grad`` gives it."""
+    zeros, as ``jax.grad`` gives it.  A DTensor parameter's gradient comes
+    back in its parameter's layout."""
     names, leaves = zip(*named_params(params).items())
     if not all(p.requires_grad for p in leaves):
         raise ValueError("make_train_step: the parameters must require "
@@ -49,11 +54,13 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict):
         loss = loss_fn(params, cfg, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
+    grads = [like_param(g, p) for g, p in zip(grads, leaves)]
     return loss.detach(), dict(zip(names, grads))
 
 
 def grad_norm(grads: dict) -> torch.Tensor:
-    """The f32 norm over every gradient."""
+    """The f32 norm over every gradient (over every shard of a DTensor
+    gradient: the sum of squares is reduced across ranks)."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in grads.values()))
 
@@ -68,15 +75,14 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
         if accum_steps == 1:
             loss, grads = loss_and_grads(params, cfg, batch)
         else:
-            micro = {k: x.reshape(accum_steps, x.shape[0] // accum_steps,
-                                  *x.shape[1:]) for k, x in batch.items()}
             grads, losses = None, []
             for i in range(accum_steps):
-                l, g = loss_and_grads(params, cfg,
-                                      {k: x[i] for k, x in micro.items()})
+                l, g = loss_and_grads(params, cfg, {
+                    k: x[i * (x.shape[0] // accum_steps):
+                         (i + 1) * (x.shape[0] // accum_steps)]
+                    for k, x in batch.items()})
                 if grads is None:
-                    grads = {k: torch.zeros(x.shape, dtype=torch.float32,
-                                            device=x.device)
+                    grads = {k: torch.zeros_like(x, dtype=torch.float32)
                              for k, x in g.items()}
                 for k, x in g.items():
                     grads[k] += x.float() / accum_steps
@@ -87,7 +93,8 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
         params, opt_state = adamw_update(
             params, grads, opt_state, lr=lr, weight_decay=weight_decay,
             quantize=quantized_opt)
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+        return params, opt_state, {"loss": full(loss),
+                                   "grad_norm": full(gnorm)}
 
     return train_step
 

@@ -1,5 +1,6 @@
 """Training driver: data pipeline -> train step -> checkpoints (port of
-``repro.launch.train``, on one device).
+``repro.launch.train``), on one device or, with ``mesh``, on DTensors over
+a mesh.
 
 Fault tolerance: atomic checkpoints every ``save_every`` steps, SIGTERM
 installs a checkpoint-now request, restart resumes the parameters, the
@@ -14,13 +15,18 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataPipeline
+from repro_torch.distributed.sharding import (P, activation_sharding,
+                                              distribute, distribute_model,
+                                              dp_entry)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import OptState, adamw_init
@@ -33,29 +39,68 @@ def device_batch(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def _opt_to(opt: OptState, device) -> OptState:
-    def to(x):
-        if isinstance(x, tuple):
-            return type(x)(*(t.to(device) for t in x))
-        return x.to(device)
-    return OptState(step=opt.step.to(device),
-                    m={k: to(x) for k, x in opt.m.items()},
-                    v={k: to(x) for k, x in opt.v.items()})
+def _local(x):
+    """A DTensor's own block (a Q8 of DTensors field by field); anything
+    else as it is."""
+    if isinstance(x, tuple):
+        return type(x)(*(_local(t) for t in x))
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _local_state(params, opt: OptState):
+    """(the model's state_dict, the OptState), each DTensor as its own
+    block: what this process checkpoints."""
+    return ({k: _local(v) for k, v in params.state_dict().items()},
+            OptState(step=opt.step, m={k: _local(x) for k, x in opt.m.items()},
+                     v={k: _local(x) for k, x in opt.v.items()}))
+
+
+def _restore_like(like, restored, device):
+    """``restored`` (CPU blocks) in ``like``'s place on ``device``: a
+    DTensor rebuilt from its block in ``like``'s layout."""
+    if isinstance(like, tuple):
+        return type(like)(*(_restore_like(a, b, device)
+                            for a, b in zip(like, restored)))
+    if isinstance(like, DTensor):
+        return DTensor.from_local(restored.to(device), like.device_mesh,
+                                  like.placements, run_check=False,
+                                  shape=like.shape, stride=like.stride())
+    return restored.to(device)
 
 
 def train(arch: str = "qwen3-14b", smoke: bool = True, steps: int = 100,
           batch: int = 8, seq: int = 64, lr: float = 1e-3,
           ckpt_dir: str | None = None, save_every: int = 50,
-          quantized_opt: bool = False, accum_steps: int = 1,
+          mesh=None, quantized_opt: bool = False, accum_steps: int = 1,
           log_every: int = 10, seed: int = 0, device="cuda"):
     """Train ``arch`` (its smoke config unless ``smoke`` is False) from
     seeded weights on ``device``; returns (the model, the losses of the
-    steps run here)."""
+    steps run here).
+
+    ``mesh`` (a ``DeviceMesh`` on ("data", "model"), e.g.
+    ``launch.mesh.make_smoke_mesh``): the parameters become DTensors laid
+    out by ``params_shardings``, the f32 moments follow them (Q8 moments
+    are whole on every rank, the reference's replicated ones), each batch
+    is split over "data", and the step runs under
+    ``activation_sharding(mesh)``.  Every rank draws the same weights and
+    batches from the seed.  A checkpoint then holds each process's own
+    blocks (``host_<rank>.npz``) and restores into a run on the same
+    mesh."""
     cfg = get_config(arch, smoke=smoke)
     pipe = DataPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                         seed=seed)
-    params = T.init_model(cfg, seed, device).requires_grad_(True)
+    params = T.init_model(cfg, seed, device)
+    if mesh is not None:
+        distribute_model(params, mesh)
+    params.requires_grad_(True)
     opt = adamw_init(params, quantize=quantized_opt)
+
+    def to_device(b):
+        b = device_batch(b, device)
+        if mesh is None:
+            return b
+        return {k: distribute(x, P(dp_entry(mesh, x.shape[0]), None), mesh)
+                for k, x in b.items()}
 
     mgr = None
     start_step = 0
@@ -64,9 +109,15 @@ def train(arch: str = "qwen3-14b", smoke: bool = True, steps: int = 100,
         mgr.save_on_signal()
         latest = mgr.latest_step()
         if latest is not None:
-            (state, opt), extra = mgr.restore((params.state_dict(), opt))
-            params.load_state_dict(state)
-            opt = _opt_to(opt, device)
+            (state, opt_l), extra = mgr.restore(_local_state(params, opt))
+            with torch.no_grad():
+                for k, p in params.state_dict().items():
+                    _local(p).copy_(state[k])
+            opt = OptState(step=opt_l.step.to(device),
+                           m={k: _restore_like(opt.m[k], x, device)
+                              for k, x in opt_l.m.items()},
+                           v={k: _restore_like(opt.v[k], x, device)
+                              for k, x in opt_l.v.items()})
             start_step = int(extra["step"]) if extra else latest
             pipe.seek(start_step)
             print(f"[train] resumed from step {start_step}")
@@ -75,21 +126,24 @@ def train(arch: str = "qwen3-14b", smoke: bool = True, steps: int = 100,
                               quantized_opt=quantized_opt)
     losses = []
     t0 = time.time()
-    for i in range(start_step, steps):
-        params, opt, metrics = step_fn(params, opt,
-                                       device_batch(next(pipe), device))
-        loss = float(metrics["loss"])
-        losses.append(loss)
-        if i % log_every == 0 or i == steps - 1:
-            dt = time.time() - t0
-            print(f"[train] step {i:5d}  loss {loss:.4f}  "
-                  f"gnorm {float(metrics['grad_norm']):.3f}  "
-                  f"{dt:.1f}s", flush=True)
-        if mgr and (i % save_every == save_every - 1
-                    or mgr.should_save_now):
-            mgr.save(i + 1, (params.state_dict(), opt),
-                     extra={"step": i + 1,
-                            "pipeline": pipe.state.to_dict()})
+    ctx = (activation_sharding(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx:
+        for i in range(start_step, steps):
+            params, opt, metrics = step_fn(params, opt,
+                                           to_device(next(pipe)))
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            if i % log_every == 0 or i == steps - 1:
+                dt = time.time() - t0
+                print(f"[train] step {i:5d}  loss {loss:.4f}  "
+                      f"gnorm {float(metrics['grad_norm']):.3f}  "
+                      f"{dt:.1f}s", flush=True)
+            if mgr and (i % save_every == save_every - 1
+                        or mgr.should_save_now):
+                mgr.save(i + 1, _local_state(params, opt),
+                         extra={"step": i + 1,
+                                "pipeline": pipe.state.to_dict()})
     return params, losses
 
 

@@ -18,7 +18,11 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import (P, axis_sizes, divisible,
+                                              dp_entry, placements,
+                                              shard_act)
 from repro_torch.kernels.flash_attention import flash_gqa
 
 from .layers import apply_rope, const, dense, dtype_of, rms_norm
@@ -34,13 +38,17 @@ class GQA(nn.Module):
         super().__init__()
         d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         dt = dtype_of(cfg.param_dtype)
-        self.wq = dense((d, h, hd), gen, dt, device)
-        self.wk = dense((d, kvh, hd), gen, dt, device)
-        self.wv = dense((d, kvh, hd), gen, dt, device)
-        self.wo = dense((h, hd, d), gen, dt, device, fan_in=h * hd)
+        self.wq = dense((d, h, hd), gen, dt, device,
+                        axes=("embed", "heads", None))
+        self.wk = dense((d, kvh, hd), gen, dt, device,
+                        axes=("embed", "kv", None))
+        self.wv = dense((d, kvh, hd), gen, dt, device,
+                        axes=("embed", "kv", None))
+        self.wo = dense((h, hd, d), gen, dt, device, fan_in=h * hd,
+                        axes=("heads", None, "embed"))
         if cfg.qk_norm:
-            self.q_norm = const((hd,), dt, device)
-            self.k_norm = const((hd,), dt, device)
+            self.q_norm = const((hd,), dt, device, axes=(None,))
+            self.k_norm = const((hd,), dt, device, axes=(None,))
 
 
 def init_gqa(cfg, gen, device) -> GQA:
@@ -50,7 +58,8 @@ def init_gqa(cfg, gen, device) -> GQA:
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    y = x @ divisible(w.to(x.dtype).reshape(d, h * k), -1, h)
+    return divisible(y, -1, h).unflatten(-1, (h, k))
 
 
 def _qkv(p: GQA, cfg, x, positions):
@@ -66,7 +75,8 @@ def _qkv(p: GQA, cfg, x, positions):
 def _out(p: GQA, out: torch.Tensor, dtype) -> torch.Tensor:
     """einsum("bshk,hkd->bsd")."""
     h, k, d = p.wo.shape
-    return out.flatten(-2) @ p.wo.to(dtype).reshape(h * k, d)
+    return (divisible(out.flatten(-2), -1, h)
+            @ divisible(p.wo.to(dtype).reshape(h * k, d), 0, h))
 
 
 def _sdpa(q, k, v, mask, softcap=None):
@@ -74,7 +84,7 @@ def _sdpa(q, k, v, mask, softcap=None):
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
-    q = q.reshape(b, s, kvh, g, hd)
+    q = divisible(q, 2, kvh).reshape(b, s, kvh, g, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k).float()
     scores = scores / math.sqrt(hd)
     if softcap is not None:
@@ -82,7 +92,8 @@ def _sdpa(q, k, v, mask, softcap=None):
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(b, s, h, hd)
+    # the gradient coming back may split the heads where kvh cannot
+    return divisible(out.reshape(b, s, h, hd), 2, kvh)
 
 
 def causal_mask(s: int, window=None, device=None):
@@ -127,20 +138,53 @@ def _sdpa_chunked(q, k, v, *, causal=True, window=None, softcap=None,
     return torch.cat(outs, dim=1)
 
 
+def on_head_shards(attend, q, k, v, **kw):
+    """``attend(q, k, v, **kw)``; on DTensors, on each rank's own block.
+
+    The flash kernel takes plain tensors, and DTensor cannot flatten the
+    batch and head dimensions of a decode step's products when both are
+    split, so q, k and v go to one layout
+    (batch over the DP axes, heads over "model" where both the query and
+    the kv head counts divide it, the sequence whole: a causal block
+    needs every key before it) and ``attend`` runs on the local blocks.
+    Head h of a block still reads kv head h // (H // KV) of the same
+    block, as in the whole tensors.  Decode's attention over the cache
+    runs here too; the chunked prefill attention runs on the DTensors
+    themselves."""
+    if not isinstance(q, DTensor):
+        return attend(q, k, v, **kw)
+    mesh = q.device_mesh
+    model = axis_sizes(mesh).get("model")
+    heads = ("model" if model and q.shape[2] % model == 0
+             and k.shape[2] % model == 0 else None)
+    pl = placements(P(dp_entry(mesh, q.shape[0]), None, heads), mesh)
+    q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
+    return DTensor.from_local(attend(q, k, v, **kw), mesh, pl,
+                              run_check=False)
+
+
+def _seq_split(t) -> bool:
+    """Whether a DTensor's sequence (dimension 1) is split."""
+    return isinstance(t, DTensor) and any(
+        q.is_shard(1) for q in t.placements)
+
+
 def apply_gqa(p: GQA, cfg, x, positions, window=None, flash=flash_gqa):
     """``flash`` is the attention of the flash path (the kernel's wrapper;
     a check may pass its plain version, ``flash_gqa_ref``)."""
     q, k, v = _qkv(p, cfg, x, positions)
-    # the reference's shard_act(q/out, "attn_q") is the identity outside an
-    # activation_sharding context, and a single-device run is outside one
+    # optional context parallelism: queries over "model", K/V whole
+    q = shard_act(q, "attn_q")
     if (cfg.use_flash_attention and window is None
             and cfg.attn_logit_softcap is None
             and x.shape[1] % 128 == 0):
-        out = flash(q, k, v, causal=True, bq=min(512, x.shape[1]),
-                    bk=min(512, x.shape[1]))
+        out = on_head_shards(flash, q, k, v, causal=True,
+                             bq=min(512, x.shape[1]),
+                             bk=min(512, x.shape[1]))
     else:
         out = _sdpa_chunked(q, k, v, causal=True, window=window,
                             softcap=cfg.attn_logit_softcap)
+    out = shard_act(out, "attn_q")
     return _out(p, out, x.dtype)
 
 
@@ -179,8 +223,12 @@ def decode_gqa(p: GQA, cfg, x, cache, pos: int, window=None):
     if window is not None:
         mask &= (pos - gpos) < window
     mask = mask[None, None, None]                       # [1,1,1,1,Tb]
-    out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
-                cfg.attn_logit_softcap)
+    ck, cv = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+    if _seq_split(ck):      # long context: the DTensors merge the softmax
+        out = _sdpa(q, ck, cv, mask, cfg.attn_logit_softcap)
+    else:
+        out = on_head_shards(_sdpa, q, ck, cv, mask=mask,
+                             softcap=cfg.attn_logit_softcap)
     return _out(p, out, x.dtype), cache
 
 
@@ -197,12 +245,17 @@ class MLA(nn.Module):
         r, qr = cfg.kv_lora_rank, cfg.qk_rope_dim
         qn, vd = cfg.qk_nope_dim, cfg.v_head_dim
         dt = dtype_of(cfg.param_dtype)
-        self.wq = dense((d, h, qn + qr), gen, dt, device)
-        self.wkv_down = dense((d, r + qr), gen, dt, device)
-        self.wk_up = dense((r, h, qn), gen, dt, device)
-        self.wv_up = dense((r, h, vd), gen, dt, device)
-        self.wo = dense((h, vd, d), gen, dt, device, fan_in=h * vd)
-        self.kv_norm = const((r,), dt, device)
+        self.wq = dense((d, h, qn + qr), gen, dt, device,
+                        axes=("embed", "heads", None))
+        self.wkv_down = dense((d, r + qr), gen, dt, device,
+                              axes=("embed", "lora"))
+        self.wk_up = dense((r, h, qn), gen, dt, device,
+                           axes=("lora", "heads", None))
+        self.wv_up = dense((r, h, vd), gen, dt, device,
+                           axes=("lora", "heads", None))
+        self.wo = dense((h, vd, d), gen, dt, device, fan_in=h * vd,
+                        axes=("heads", None, "embed"))
+        self.kv_norm = const((r,), dt, device, axes=(None,))
 
 
 def init_mla(cfg, gen, device) -> MLA:

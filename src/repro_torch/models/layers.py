@@ -4,6 +4,9 @@
 Parameters live in ``nn.Module``s with the reference's names and shapes
 (``wi`` [d, f], ``wo`` [f, d], ``tok`` [vocab, d], ...), so carrying the
 reference's weights across is a plain copy (:mod:`repro_torch.convert`).
+Every parameter carries its logical axes (``logical_axes``, the
+reference's ``axes`` tree leaf by leaf; :func:`param_axes`), which
+``repro_torch.distributed.sharding`` maps onto mesh axes.
 Initialisation takes an explicit ``torch.Generator``: dense weights are
 normal x 1/sqrt(fan_in), with the fan-in of the reference's ``dense`` calls,
 and constants are zeros.  The two packages draw different numbers from one
@@ -19,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import in_layout
+
 
 def dtype_of(name: str) -> torch.dtype:
     """The torch dtype of a config's dtype name (``cfg.dtype``,
@@ -29,18 +34,41 @@ def dtype_of(name: str) -> torch.dtype:
     return dt
 
 
+def _param(w: torch.Tensor, axes) -> nn.Parameter:
+    p = nn.Parameter(w, requires_grad=False)
+    p.logical_axes = tuple(axes)
+    return p
+
+
 def dense(shape, gen: torch.Generator, dtype, device,
-          fan_in: int | None = None) -> nn.Parameter:
-    """normal(shape) / sqrt(fan_in), fan_in defaulting to ``shape[0]``."""
+          fan_in: int | None = None, *, axes) -> nn.Parameter:
+    """normal(shape) / sqrt(fan_in), fan_in defaulting to ``shape[0]``;
+    ``axes`` are its logical axes, one name (or None) a dimension."""
     fan_in = fan_in or shape[0]
     w = torch.empty(shape, dtype=dtype, device=device)
     w.normal_(generator=gen).mul_(1.0 / math.sqrt(max(fan_in, 1)))
-    return nn.Parameter(w, requires_grad=False)
+    return _param(w, axes)
 
 
-def const(shape, dtype, device, value: float = 0.0) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
-                        requires_grad=False)
+def const(shape, dtype, device, value: float = 0.0, *,
+          axes) -> nn.Parameter:
+    return _param(torch.full(shape, value, dtype=dtype, device=device), axes)
+
+
+def param_axes(model: nn.Module) -> dict:
+    """``{name: logical axes}`` of every parameter of ``model``, as the
+    reference's ``Builder.dense``/``const`` declare them (its scanned
+    groups' leading ``"stack"`` axis has no counterpart: each layer is a
+    module of its own)."""
+    return {name: p.logical_axes for name, p in model.named_parameters()}
+
+
+def set_param_axes(model: nn.Module, axes: dict) -> nn.Module:
+    """Tag ``model``'s parameters with ``axes`` (after a load that
+    replaced them, e.g. ``load_state_dict(assign=True)``)."""
+    for name, p in model.named_parameters():
+        p.logical_axes = tuple(axes[name])
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -63,10 +91,12 @@ class MLP(nn.Module):
 
     def __init__(self, d: int, f: int, act: str, gen, dtype, device):
         super().__init__()
-        self.wi = dense((d, f), gen, dtype, device)
+        self.wi = dense((d, f), gen, dtype, device, axes=("embed", "mlp"))
         if act in ("silu", "gelu"):
-            self.wg = dense((d, f), gen, dtype, device)
-        self.wo = dense((f, d), gen, dtype, device, fan_in=f)
+            self.wg = dense((d, f), gen, dtype, device,
+                            axes=("embed", "mlp"))
+        self.wo = dense((f, d), gen, dtype, device, fan_in=f,
+                        axes=("mlp", "embed"))
 
 
 def apply_mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
@@ -114,20 +144,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, gen, dtype, device):
         super().__init__()
-        self.tok = dense((vocab, d), gen, dtype, device, fan_in=d)
+        self.tok = dense((vocab, d), gen, dtype, device, fan_in=d,
+                         axes=("vocab", "embed"))
 
 
 class Unembed(nn.Module):
     def __init__(self, d: int, vocab: int, gen, dtype, device):
         super().__init__()
-        self.out = dense((d, vocab), gen, dtype, device)
+        self.out = dense((d, vocab), gen, dtype, device,
+                         axes=("embed", "vocab"))
 
 
 def embed_tokens(p: Embedding, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     # the rows first, then the cast: the values of the reference's
     # cast-then-gather without a cast copy of the whole table
-    return p.tok[tokens].to(dtype)
+    return in_layout(p.tok)[tokens].to(dtype)
 
 
 def unembed(p_out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ Two departures from the reference's form, with the same values:
   in one fixed order, so the output is bitwise equal run to run.
 
 The reference groups tokens by data-parallel rank (``moe_group_count``); on
-one device that is one group.  ``groups`` takes the count as an argument.
+one device that is one group.  ``groups`` takes the count as an argument,
+and by default reads it from the enclosing ``activation_sharding``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ from types import SimpleNamespace
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import (divisible, moe_group_count,
+                                              shard_act)
 
 from .layers import apply_mlp, dense, dtype_of
 
@@ -45,17 +50,23 @@ class MoE(nn.Module):
         d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
         dt = dtype_of(cfg.param_dtype)
         gated = cfg.mlp_act in GATED
-        self.router = dense((d, e), gen, dt, device)
-        self.wi = dense((e, d, f), gen, dt, device, fan_in=d)
+        self.router = dense((d, e), gen, dt, device, axes=("embed", None))
+        self.wi = dense((e, d, f), gen, dt, device, fan_in=d,
+                        axes=("expert", "embed", "mlp"))
         if gated:
-            self.wg = dense((e, d, f), gen, dt, device, fan_in=d)
-        self.wo = dense((e, f, d), gen, dt, device, fan_in=f)
+            self.wg = dense((e, d, f), gen, dt, device, fan_in=d,
+                            axes=("expert", "embed", "mlp"))
+        self.wo = dense((e, f, d), gen, dt, device, fan_in=f,
+                        axes=("expert", "mlp", "embed"))
         if cfg.n_shared_experts:
             fs = f * cfg.n_shared_experts
-            self.shared_wi = dense((d, fs), gen, dt, device)
+            self.shared_wi = dense((d, fs), gen, dt, device,
+                                   axes=("embed", "mlp"))
             if gated:
-                self.shared_wg = dense((d, fs), gen, dt, device)
-            self.shared_wo = dense((fs, d), gen, dt, device, fan_in=fs)
+                self.shared_wg = dense((d, fs), gen, dt, device,
+                                       axes=("embed", "mlp"))
+            self.shared_wo = dense((fs, d), gen, dt, device, fan_in=fs,
+                                   axes=("mlp", "embed"))
 
 
 def init_moe(cfg, gen, device) -> MoE:
@@ -131,31 +142,76 @@ def _combine(hidden, slot, keep, gates):
     return (flat[slot] * w[:, None]).reshape(t, k, -1).sum(1)
 
 
+def _experts(p: MoE, cfg, buf, groups: int, cap: int):
+    """The experts on a dispatch buffer [G, E, cap, d] -> [G, E, cap, d]:
+    [E, G cap, d] for the batched products, and back."""
+    e, d = buf.shape[1], buf.shape[-1]
+    hidden = _expert_ffn(p, buf.transpose(0, 1).reshape(e, groups * cap, d),
+                         cfg.mlp_act)
+    return hidden.reshape(e, groups, cap, d).transpose(0, 1)
+
+
+def _moe_sharded(p: MoE, cfg, xt, gates, idx, groups: int, cap: int):
+    """The grouped dispatch on DTensors: each rank sorts, caps and combines
+    its own groups (the groups over "data", the "moe_tokens" layout), and
+    the expert products run on the buffer laid out as "moe_buf" (groups
+    over "data", experts over "model")."""
+    t, d = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    tl = t // groups
+    xg = shard_act(divisible(xt, 0, groups).reshape(groups, tl, d),
+                   "moe_tokens")
+    mesh, pl = xg.device_mesh, xg.placements
+    ig, gg = (divisible(a, 0, groups).reshape(groups, tl, k)
+              .redistribute(mesh, pl).to_local() for a in (idx, gates))
+    xl = xg.to_local()
+    gl = xl.shape[0]
+    buf, slot, keep = _dispatch(xl.reshape(gl * tl, d), ig.reshape(-1, k),
+                                gl, e, cap)
+    buf = DTensor.from_local(buf[:-1].reshape(gl, e, cap, d), mesh, pl,
+                             run_check=False)
+    hidden = shard_act(_experts(p, cfg, shard_act(buf, "moe_buf"), groups,
+                                cap), "moe_buf")
+    hl = hidden.redistribute(mesh, pl).to_local()
+    out = _combine(hl.reshape(gl * e * cap, d), slot, keep,
+                   gg.reshape(-1, k))
+    out = DTensor.from_local(out.reshape(gl, tl, d), mesh, pl,
+                             run_check=False)
+    # the gradient coming back may split the tokens over "pod" and "data":
+    # gather what the group count does not divide before the view
+    return divisible(shard_act(out, "moe_tokens").reshape(t, d), 0, groups)
+
+
 def apply_moe(p: MoE, cfg, x: torch.Tensor,
               capacity_factor: float | None = None,
-              groups: int = 1) -> torch.Tensor:
+              groups: int | None = None) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d].  ``groups`` splits the tokens into that
-    many dispatch groups, each with its own sort and capacity (the
-    reference's ``moe_group_count``; 1 on one device, and when it does not
-    divide the tokens)."""
+    many dispatch groups, each with its own sort and capacity; None takes
+    ``moe_group_count`` (one group a "data" rank inside an
+    ``activation_sharding`` context, else 1), and a count that does not
+    divide the tokens falls back to 1.  On DTensors each rank dispatches
+    its own groups."""
     bsz, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = bsz * s
     xt = x.reshape(t, d)
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity
+    if groups is None:
+        groups = moe_group_count(t)
     if t % groups:
         groups = 1
     gates, idx = route(p, cfg, xt)
     cap = capacity(t // groups, k, e, capacity_factor)
 
-    buf, slot, keep = _dispatch(xt, idx, groups, e, cap)
-    # [G E cap, d] -> [E, G cap, d] for the batched products, and back
-    hidden_in = buf[:-1].reshape(groups, e, cap, d).transpose(0, 1)
-    hidden = _expert_ffn(p, hidden_in.reshape(e, groups * cap, d),
-                         cfg.mlp_act)
-    hidden = hidden.reshape(e, groups, cap, d).transpose(0, 1)
-    out = _combine(hidden.reshape(groups * e * cap, d), slot, keep, gates)
+    if isinstance(xt, DTensor):
+        out = _moe_sharded(p, cfg, xt, gates, idx, groups, cap)
+    else:
+        buf, slot, keep = _dispatch(xt, idx, groups, e, cap)
+        hidden = _experts(p, cfg, buf[:-1].reshape(groups, e, cap, d),
+                          groups, cap)
+        out = _combine(hidden.reshape(groups * e * cap, d), slot, keep,
+                       gates)
 
     if cfg.n_shared_experts:
         shared = SimpleNamespace(wi=p.shared_wi, wo=p.shared_wo,

@@ -26,6 +26,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import batch_placements, on_batch_shards
 
 from .layers import const, dense, dtype_of, rms_norm
 
@@ -44,14 +47,17 @@ class SSM(nn.Module):
         nh = d_in // cfg.ssm_head_dim
         ck = cfg.ssm_conv_kernel
         dt = dtype_of(cfg.param_dtype)
-        self.in_proj = dense((d, 2 * d_in + 2 * n + nh), gen, dt, device)
-        self.conv_w = dense((ck, d_in + 2 * n), gen, dt, device, fan_in=ck)
-        self.conv_b = const((d_in + 2 * n,), dt, device)
-        self.a_log = const((nh,), dt, device, value=0.0)
-        self.d_skip = const((nh,), dt, device, value=1.0)
-        self.dt_bias = const((nh,), dt, device)
-        self.out_norm = const((d_in,), dt, device)
-        self.out_proj = dense((d_in, d), gen, dt, device, fan_in=d_in)
+        self.in_proj = dense((d, 2 * d_in + 2 * n + nh), gen, dt, device,
+                             axes=("embed", "inner"))
+        self.conv_w = dense((ck, d_in + 2 * n), gen, dt, device, fan_in=ck,
+                            axes=(None, "inner"))
+        self.conv_b = const((d_in + 2 * n,), dt, device, axes=("inner",))
+        self.a_log = const((nh,), dt, device, value=0.0, axes=(None,))
+        self.d_skip = const((nh,), dt, device, value=1.0, axes=(None,))
+        self.dt_bias = const((nh,), dt, device, axes=(None,))
+        self.out_norm = const((d_in,), dt, device, axes=("inner",))
+        self.out_proj = dense((d_in, d), gen, dt, device, fan_in=d_in,
+                              axes=("inner", "embed"))
 
 
 def init_ssm(cfg, gen, device) -> SSM:
@@ -159,6 +165,12 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
 
 
 def apply_ssm(p: SSM, cfg, x):
+    if isinstance(x, DTensor):
+        return on_batch_shards(lambda q, xl: apply_ssm(q, cfg, xl), p, x)
+    return _apply_ssm(p, cfg, x)
+
+
+def _apply_ssm(p: SSM, cfg, x):
     """Prefill path. x: [B, S, d] -> [B, S, d]; S a multiple of
     ``cfg.ssm_chunk``."""
     dtp = x.dtype
@@ -197,7 +209,25 @@ def init_ssm_cache(cfg, batch, dtype, device="cuda"):
 def decode_ssm(p: SSM, cfg, x, cache):
     """x: [B, 1, d]. O(1) recurrent update; returns (out, cache), the
     cache's window shifted and its state replaced in place (the reference
-    returns a new cache)."""
+    returns a new cache).  On DTensors each rank steps its own batch block
+    with the weights gathered (``on_batch_shards``), its cache blocks
+    gathered over the other axes and written back."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        pl = batch_placements(mesh, x.shape[0])
+        whole = {k: c.redistribute(mesh, pl) for k, c in cache.items()}
+        local = {k: c.to_local() for k, c in whole.items()}
+        out = on_batch_shards(
+            lambda q, xl: _decode_ssm(q, cfg, xl, local)[0], p, x)
+        for k, c in cache.items():
+            new = DTensor.from_local(local[k], mesh, pl, run_check=False)
+            c.to_local().copy_(new.redistribute(mesh, c.placements)
+                               .to_local())
+        return out, cache
+    return _decode_ssm(p, cfg, x, cache)
+
+
+def _decode_ssm(p: SSM, cfg, x, cache):
     dtp = x.dtype
     proj = x[:, 0] @ p.in_proj.to(dtp)                      # [B, ...]
     z, xbc, dt_raw, d_in, n, nh = _split_proj(cfg, proj)

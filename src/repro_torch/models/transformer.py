@@ -28,8 +28,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (in_layout, residual_barrier,
+                                              shard_act)
 from repro_torch.kernels.flash_attention import flash_gqa
 
 from . import attention as attn
@@ -38,6 +41,8 @@ from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (MLP, Embedding, Unembed, apply_mlp, const, dtype_of,
                      embed_tokens, rms_norm, unembed)
+
+EMBED = ("embed",)
 
 
 # ---------------------------------------------------------------------------
@@ -51,20 +56,20 @@ class Layer(nn.Module):
     def __init__(self, cfg: ModelConfig, idx: int, gen, device):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
-        self.ln1 = const((cfg.d_model,), dt, device)
+        self.ln1 = const((cfg.d_model,), dt, device, axes=EMBED)
         if cfg.layer_kind(idx) == "ssm":
             self.ssm = ssm_mod.init_ssm(cfg, gen, device)
         else:
             self.attn = (attn.init_mla(cfg, gen, device) if cfg.mla
                          else attn.init_gqa(cfg, gen, device))
         if cfg.is_encdec:
-            self.cross_ln = const((cfg.d_model,), dt, device)
+            self.cross_ln = const((cfg.d_model,), dt, device, axes=EMBED)
             self.cross = attn.init_cross(cfg, gen, device)
         if cfg.layer_is_moe(idx):
-            self.ln2 = const((cfg.d_model,), dt, device)
+            self.ln2 = const((cfg.d_model,), dt, device, axes=EMBED)
             self.moe = moe_mod.init_moe(cfg, gen, device)
         elif cfg.d_ff > 0:
-            self.ln2 = const((cfg.d_model,), dt, device)
+            self.ln2 = const((cfg.d_model,), dt, device, axes=EMBED)
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, gen, dt, device)
 
 
@@ -74,24 +79,31 @@ def init_layer(cfg: ModelConfig, idx: int, gen, device) -> Layer:
     return Layer(cfg, idx, gen, device)
 
 
+def _block_out(h):
+    """A block's output in the residual stream's layout.  Under a mesh a
+    tensor-parallel block ends in partial sums over "model"; this is where
+    they are reduced (Megatron's TP all-reduce, which XLA places at the
+    same residual add).  The identity outside a context."""
+    return shard_act(h, "hidden")
+
+
 def _cross_and_ffn(p: Layer, cfg: ModelConfig, x, enc_out):
     if cfg.is_encdec and enc_out is not None:
         h = rms_norm(x, p.cross_ln, cfg.norm_eps)
-        x = x + attn.apply_cross(p.cross, cfg, h, attn.cross_kv(p.cross,
-                                                                 enc_out))
+        x = x + _block_out(attn.apply_cross(
+            p.cross, cfg, h, attn.cross_kv(p.cross, enc_out)))
     if hasattr(p, "moe"):
         h = rms_norm(x, p.ln2, cfg.norm_eps)
-        return x + moe_mod.apply_moe(p.moe, cfg, h)
+        return x + _block_out(moe_mod.apply_moe(p.moe, cfg, h))
     if hasattr(p, "mlp"):
         h = rms_norm(x, p.ln2, cfg.norm_eps)
-        return x + apply_mlp(p.mlp, h, cfg.mlp_act)
+        return x + _block_out(apply_mlp(p.mlp, h, cfg.mlp_act))
     return x
 
 
 def apply_layer(p: Layer, cfg: ModelConfig, idx: int, x, positions,
                 enc_out=None, flash=flash_gqa):
-    # shard_act(x, "hidden") and residual_barrier are the identity outside
-    # an activation_sharding context, and a single-device run is outside one
+    x = shard_act(x, "hidden")
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if cfg.layer_kind(idx) == "ssm":
         h = ssm_mod.apply_ssm(p.ssm, cfg, h)
@@ -100,7 +112,8 @@ def apply_layer(p: Layer, cfg: ModelConfig, idx: int, x, positions,
     else:
         h = attn.apply_gqa(p.attn, cfg, h, positions,
                            window=cfg.layer_window(idx), flash=flash)
-    return _cross_and_ffn(p, cfg, x + h, enc_out)
+    return residual_barrier(_cross_and_ffn(p, cfg, x + _block_out(h),
+                                           enc_out))
 
 
 def init_layer_cache(cfg: ModelConfig, idx: int, batch, max_len, dtype,
@@ -123,7 +136,7 @@ def decode_layer(p: Layer, cfg: ModelConfig, idx: int, x, cache, pos,
     else:
         h, cache = attn.decode_gqa(p.attn, cfg, h, cache, pos,
                                    window=cfg.layer_window(idx))
-    return _cross_and_ffn(p, cfg, x + h, enc_out), cache
+    return _cross_and_ffn(p, cfg, x + _block_out(h), enc_out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +169,9 @@ class EncoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, gen, device):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
-        self.ln1 = const((cfg.d_model,), dt, device)
+        self.ln1 = const((cfg.d_model,), dt, device, axes=EMBED)
         self.attn = attn.init_gqa(cfg, gen, device)
-        self.ln2 = const((cfg.d_model,), dt, device)
+        self.ln2 = const((cfg.d_model,), dt, device, axes=EMBED)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, gen, dt, device)
 
 
@@ -175,14 +188,14 @@ class Model(nn.Module):
         self.layer_idx = layer_indices(cfg)
         self.layers = nn.ModuleList(init_layer(cfg, i, gen, device)
                                     for i in self.layer_idx)
-        self.final_norm = const((cfg.d_model,), dt, device)
+        self.final_norm = const((cfg.d_model,), dt, device, axes=EMBED)
         if not cfg.tie_embeddings:
             self.unembed = Unembed(cfg.d_model, cfg.padded_vocab, gen, dt,
                                    device)
         if cfg.is_encdec:
             self.encoder = nn.ModuleList(EncoderLayer(cfg, gen, device)
                                          for _ in range(cfg.enc_layers))
-            self.enc_final_norm = const((cfg.d_model,), dt, device)
+            self.enc_final_norm = const((cfg.d_model,), dt, device, axes=EMBED)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
@@ -199,9 +212,9 @@ def apply_encoder(params: Model, cfg: ModelConfig, enc_embeds):
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for lp in params.encoder:
         h = rms_norm(x, lp.ln1, cfg.norm_eps)
-        x = x + attn.apply_bidir(lp.attn, cfg, h, positions)
+        x = x + _block_out(attn.apply_bidir(lp.attn, cfg, h, positions))
         h = rms_norm(x, lp.ln2, cfg.norm_eps)
-        x = x + apply_mlp(lp.mlp, h, cfg.mlp_act)
+        x = x + _block_out(apply_mlp(lp.mlp, h, cfg.mlp_act))
     return rms_norm(x, params.enc_final_norm, cfg.norm_eps)
 
 
@@ -221,7 +234,7 @@ def forward(params: Model, cfg: ModelConfig, tokens, frontend_embeds=None,
     path (see ``attention.apply_gqa``).  Under grad with ``cfg.remat`` each
     scanned group is rematerialised."""
     dtype = dtype_of(cfg.dtype)
-    x = embed_tokens(params.embed, tokens, dtype)
+    x = shard_act(embed_tokens(params.embed, tokens, dtype), "hidden")
     if frontend_embeds is not None:
         # modality stub: frontend embeddings overwrite the leading positions
         n = frontend_embeds.shape[1]
@@ -250,13 +263,18 @@ def forward(params: Model, cfg: ModelConfig, tokens, frontend_embeds=None,
 
 
 def logits_from_hidden(params: Model, cfg: ModelConfig, hidden):
-    out = (params.embed.tok.T if cfg.tie_embeddings
+    out = (in_layout(params.embed.tok).T if cfg.tie_embeddings
            else params.unembed.out)
     logits = unembed(out, hidden)
     if cfg.padded_vocab != cfg.vocab:
-        # mask the padding columns (never predicted, zero softmax mass)
-        logits[..., cfg.vocab:] = -1e30
-    return logits
+        # mask the padding columns (never predicted, zero softmax mass); a
+        # DTensor's vocab may be sharded, so it takes the out-of-place mask
+        if isinstance(logits, DTensor):
+            cols = torch.arange(cfg.padded_vocab, device=logits.device)
+            logits = logits.masked_fill(cols >= cfg.vocab, -1e30)
+        else:
+            logits[..., cfg.vocab:] = -1e30
+    return shard_act(logits, "logits")
 
 
 # ---------------------------------------------------------------------------

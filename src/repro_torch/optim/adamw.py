@@ -9,6 +9,8 @@ The update runs in f32 with the reference's formula in its order of
 operations, ``(m / bc1) / (sqrt(v / bc2) + eps) + wd * p``, then
 ``p - lr * update``; ``torch.optim.AdamW`` rounds in another order and has
 no Q8 state.  Parameters are updated in place; the moments are new tensors.
+On DTensor parameters (a mesh) the f32 moments are DTensors in their
+parameters' layouts; Q8 moments are whole tensors on every rank.
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import local_block
 
 from .quantized import (Q8, dequantize_q8, dequantize_q8_root4, quantize_q8,
                         quantize_q8_root4)
@@ -35,8 +40,10 @@ def named_params(params) -> dict:
 
 
 def _zeros_like_maybe_q8(p: torch.Tensor, quantize: bool):
-    z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return quantize_q8(z) if quantize else z
+    if quantize:      # Q8 moments are whole tensors on every rank
+        return quantize_q8(torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device))
+    return torch.zeros_like(p, dtype=torch.float32)
 
 
 def adamw_init(params, quantize: bool = False) -> OptState:
@@ -46,6 +53,17 @@ def adamw_init(params, quantize: bool = False) -> OptState:
     v = {k: _zeros_like_maybe_q8(p, quantize) for k, p in flat.items()}
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m=m, v=v)
+
+
+def _step(p, g, m, v, b1, b2, bc1, bc2, eps, lr, weight_decay):
+    """(new m, new v, new p) in f32, the parameter back in its type."""
+    mf = dequantize_q8(m) if isinstance(m, Q8) else m
+    vf = dequantize_q8_root4(v) if isinstance(v, Q8) else v
+    mf = b1 * mf + (1.0 - b1) * g
+    vf = b2 * vf + (1.0 - b2) * g * g
+    update = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
+    update = update + weight_decay * p.float()
+    return mf, vf, (p.float() - lr * update).to(p.dtype)
 
 
 @torch.no_grad()
@@ -64,13 +82,18 @@ def adamw_update(params, grads: dict, state: OptState, lr: float = 1e-4,
     for name, p in named_params(params).items():
         g = grads[name].float()
         m, v = state.m[name], state.v[name]
-        mf = dequantize_q8(m) if isinstance(m, Q8) else m
-        vf = dequantize_q8_root4(v) if isinstance(v, Q8) else v
-        mf = b1 * mf + (1.0 - b1) * g
-        vf = b2 * vf + (1.0 - b2) * g * g
-        update = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
-        update = update + weight_decay * p.float()
-        p.copy_((p.float() - lr * update).to(p.dtype))
+        if quantize and isinstance(p, DTensor):
+            # Q8 moments are replicated (the reference's trainer): the
+            # update runs on the whole tensors, each rank keeps its block
+            g, whole = g.full_tensor(), p.full_tensor()
+            mf, vf, new = _step(whole, g, m, v, b1, b2, bc1, bc2, eps, lr,
+                                weight_decay)
+            p.to_local().copy_(local_block(new, p))
+            new_m[name], new_v[name] = quantize_q8(mf), quantize_q8_root4(vf)
+            continue
+        mf, vf, new = _step(p, g, m, v, b1, b2, bc1, bc2, eps, lr,
+                            weight_decay)
+        p.copy_(new)
         if quantize:
             new_m[name], new_v[name] = quantize_q8(mf), quantize_q8_root4(vf)
         else:

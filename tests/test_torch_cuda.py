@@ -1657,3 +1657,96 @@ def test_cuda_mamba2_smoke_resume_is_bitwise(cuda, tmp_path):
     for (k, a), b in zip(want.state_dict().items(),
                          got.state_dict().values()):
         assert torch.equal(a, b), k
+
+
+# --------------------------------------------------------------------------
+# The sharded path on one card: a (1, 1) mesh over a one-rank NCCL group
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def card_mesh(cuda):
+    """A (1, 1) ("data", "model") mesh over a world of one, closed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    mesh = make_smoke_mesh((1, 1), ("data", "model"))
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_prefill_is_bitwise_with_flash_launches(cuda, card_mesh):
+    """A two-layer dense model in bf16 at S = 256 with the flash flag on:
+    its prefill through the DTensor path (parameters made DTensors in
+    place) launches the tensor-core flash kernel once a layer on each
+    rank's head block, and its logits are bitwise the unsharded step's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (P, activation_sharding,
+                                                  distribute,
+                                                  distribute_model, full)
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("qwen3-14b", smoke=True),
+                              head_dim=64, dtype="bfloat16",
+                              use_flash_attention=True)
+    params = T.init_model(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 256))).to(cuda)
+    want = make_prefill_step(cfg)(params, {"tokens": tokens})
+    distribute_model(params, card_mesh)
+    ops.reset_counts()
+    with activation_sharding(card_mesh):
+        got = full(make_prefill_step(cfg)(params, {
+            "tokens": distribute(tokens, P("data", None), card_mesh)}))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    assert ops.flash_variant_counts() == {"tensor_core": cfg.num_layers,
+                                          "ffma": 0}
+    assert torch.equal(got, want)
+
+
+# gemma3's one kv head: the key's gradient block comes back through DTensor
+# with another stride on its size-1 head dimension, and the rope and norm
+# backward order their sums by stride, so its later steps part by ulps
+# (chip_smoke.py's SHARDED_TRAIN_REL, 1e-3, for the same reason)
+_SHARDED_TRAIN_REL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-14b", "gemma3-1b"])
+def test_cuda_train_mesh_against_train(cuda, card_mesh, arch):
+    """Three steps of two microbatches of a smoke model through
+    ``train(mesh=)`` on the (1, 1) mesh and through ``train()``: qwen3's
+    losses bitwise; gemma3's first step bitwise (the forward is), the rest
+    within _SHARDED_TRAIN_REL."""
+    from repro_torch.launch.train import train
+    kw = dict(arch=arch, steps=3, batch=4, seq=32, accum_steps=2,
+              device=cuda, log_every=100)
+    _, want = train(**kw)
+    _, got = train(**kw, mesh=card_mesh)
+    if arch == "qwen3-14b":
+        assert got == want
+    assert got[0] == want[0]
+    assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) \
+        <= _SHARDED_TRAIN_REL
+
+
+@pytest.mark.cuda
+def test_cuda_compression_is_bitwise_the_cpu(cuda):
+    """``compress_pod_gradients`` (local path) on the card and on the CPU,
+    outputs and residuals bitwise, a ragged length included."""
+    from repro_torch.optim.compress import compress_pod_gradients, ef_init
+    rng = np.random.default_rng(4)
+    grads = {"a": rng.standard_normal((3, 300)).astype(np.float32),
+             "b": (rng.standard_normal(1152) * 1e-3).astype(np.float32)}
+    out = {}
+    for dev in ("cpu", cuda):
+        g = {k: torch.from_numpy(v).to(dev) for k, v in grads.items()}
+        ef = {k: v * 1e-3 for k, v in ef_init(g).items()}
+        o, e = compress_pod_gradients(g, ef)
+        o2, e2 = compress_pod_gradients(g, e)
+        out[str(dev)] = [t.cpu() for d in (o, e, o2, e2) for t in d.values()]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(a, b)
