@@ -233,14 +233,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    head block: 40 tensor-core launches, the logits bitwise phase 10's;
    decode on caches laid out by ``cache_shardings``, its tokens equal to
    the unsharded ``decode_tokens``' on the same prompts; gemma3-1b trained
-   6 steps through ``train(mesh=)`` against phase 10e's unsharded losses
-   (step 0 bitwise, the rest within SHARDED_TRAIN_REL); the int8
-   compression of its gradients on the card bitwise the CPU's.  With four
+   6 steps through ``train(mesh=)``, its losses bitwise phase 10e's
+   unsharded ones; the int8 compression of its gradients on the card
+   bitwise the CPU's.  With four
    cards, a 2 x 2 mesh over four NCCL processes (this script with
    ``--sharded-worker``): gemma3-1b's steps, qwen3-14b's prefill and
    decode at 20/4 heads a rank against the one-card readings, and the
-   int8 payload sum over a two-rank "pod" group bitwise the local sum; on
-   one card that part is logged as skipped, not passed;
+   int8 payload sum over a two-rank "pod" group bitwise the local sum,
+   and a preemption: ``train(mesh=)`` with a checkpoint directory where
+   rank 1 alone gets SIGTERM during step 1, after which all four ranks
+   save step 2 and exit; on one card that part is logged as skipped, not
+   passed;
 14. the kernels line (JSON; each kernel also with its launches in config
    A, in the disk tier, in calibration, in the tuned factor, in the
    served pair, through the shim and in phase 10e's training steps, all
@@ -4261,22 +4264,18 @@ def examples(card: str) -> dict:
 # a DTensor decode step sends each op through DTensor's dispatch, so the
 # replay is shorter than phase 10's 128 tokens, and its tokens are held
 # equal to ``decode_tokens``' unsharded ones on the same prompts.
-# gemma3-1b's sharded steps against phase 10e's: step 0 bitwise (the
-# forward is), later steps within SHARDED_TRAIN_REL relative: with one kv
-# head the key's gradient block comes back through DTensor with another
-# stride on its size-1 head dimension, and the rope and norm backward
-# order their sums by stride (one ulp of the loss at step 2 in a CPU
-# rehearsal at smoke size in f32; 1.2e-4 on the card in a first run), and
-# AdamW turns ulp-level gradient differences into moves of up to 2 LR
-# where |g| is near eps (tests/test_torch_train.py).  Its
-# gradients for the compression check: SHARDED_GRAD_ROWS x TRAIN_SEQ
-# tokens.  On four cards (2 x 2), the sums over "model" add bf16 partial
-# products in another order than one card's single product: qwen3-14b's
-# logits are held within phase 10's PREFILL_REL_BOUND and
+# gemma3-1b's sharded steps against phase 10e's: every loss bitwise.  With
+# one kv head the key's gradient came back through DTensor's backward of
+# the rope's split with another stride on its size-1 head dimension, and
+# rms_norm's backward summed in another order (within 1.2e-4 of the loss
+# on the card); ``sharding.contiguous_grad`` gives it the plain path's
+# layout.  Its gradients for the compression check: SHARDED_GRAD_ROWS x
+# TRAIN_SEQ tokens.  On four cards (2 x 2), the sums over "model" add
+# bf16 partial products in another order than one card's single product:
+# qwen3-14b's logits are held within phase 10's PREFILL_REL_BOUND and
 # REPLAY_REL_BOUND (bf16 reorderings of attention), gemma3-1b's first
 # FOUR_CARD_STEPS losses within FOUR_CARD_LOSS_REL of the one-card ones.
 SHARDED_PROMPT, SHARDED_GEN = 16, 8
-SHARDED_TRAIN_REL = 1e-3
 SHARDED_GRAD_ROWS = 2
 FOUR_CARD_STEPS = 3
 FOUR_CARD_LOSS_REL = 1e-2
@@ -4370,20 +4369,15 @@ def sharded_training(dev, seed: int, mesh, want: list) -> tuple:
                            log_every=1)
     secs = time.perf_counter() - t0
     launches = repro_torch.launch_counts()
-    bitwise = losses == want
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
     log(f"sharded: gemma3-1b {TRAIN_STEPS} steps through train(mesh=) in "
         f"{secs:.1f}s; losses {losses}; phase 10e's {want}; bitwise "
-        f"{bitwise}; max relative difference {max(rel):.3e} (bound "
-        f"{SHARDED_TRAIN_REL:.0e}, step 0 bitwise)")
-    require(len(losses) == len(want) and losses[0] == want[0],
-            f"sharded step 0 loss {losses[0]!r} != {want[0]!r}")
-    require(max(rel) <= SHARDED_TRAIN_REL, f"sharded losses {rel}")
+        f"{losses == want}; max relative difference {max(rel):.3e}")
+    require(losses == want, f"sharded losses {losses} != phase 10e's {want}")
     require(set(launches.values()) == {0}, f"training launched {launches}")
     return {"losses": losses, "unsharded_losses": want,
-            "losses_bitwise": bitwise, "max_rel_diff": max(rel),
-            "bound_rel": SHARDED_TRAIN_REL, "seconds": secs,
-            "launches": launches}, params
+            "losses_bitwise": True, "max_rel_diff": max(rel),
+            "seconds": secs, "launches": launches}, params
 
 
 def sharded_compression(params, dev, seed: int, mesh) -> dict:
@@ -4442,6 +4436,40 @@ def _local_pod_sum(gs: list) -> torch.Tensor:
     return _deblockify(r / torch.full_like(r, len(gs)), gs[0].shape[-1])
 
 
+def preempted_save(rank: int, mesh, dev, seed: int, ckpt: str) -> dict:
+    """13d's preemption: ``train(mesh=)`` on gemma3-1b for 2 steps with
+    checkpoints in ``ckpt`` (``save_every`` far off), rank 1 alone sending
+    itself SIGTERM during step 1.  Returns {step directory: its files}."""
+    import os
+    import signal
+
+    from repro_torch.launch import train as TR
+    real = TR.make_train_step
+
+    def make(cfg, **kw):
+        step, calls = real(cfg, **kw), []
+
+        def wrapped(*args):
+            calls.append(1)
+            if rank == 1 and len(calls) == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step(*args)
+        return wrapped
+
+    TR.make_train_step = make
+    try:
+        rows, accum = GEMMA3_TRAIN
+        TR.train("gemma3-1b", smoke=False, steps=2, batch=rows,
+                 seq=TRAIN_SEQ, lr=TRAIN_LR, mesh=mesh, accum_steps=accum,
+                 ckpt_dir=ckpt, save_every=100, seed=seed, device=dev,
+                 log_every=1)
+    finally:
+        TR.make_train_step = real
+    torch.distributed.barrier()
+    return {name: sorted(os.listdir(os.path.join(ckpt, name)))
+            for name in os.listdir(ckpt)}
+
+
 def sharded_worker(rank: int, d: str, seed: int) -> int:
     """One of four processes of 13d, on card ``rank``: a 2 x 2 mesh over
     NCCL; gemma3-1b's first FOUR_CARD_STEPS steps, qwen3-14b's prefill and
@@ -4473,6 +4501,7 @@ def sharded_worker(rank: int, d: str, seed: int) -> int:
                              mesh=mesh, accum_steps=accum, seed=seed,
                              device=dev, log_every=1)
     torch.cuda.empty_cache()
+    out["preempt"] = preempted_save(rank, mesh, dev, seed, f"{d}/ck")
     cfg = dataclasses.replace(get_config("qwen3-14b"),
                               use_flash_attention=True)
     params = distribute_model(T.init_model(cfg, seed, dev), mesh)
@@ -4515,8 +4544,8 @@ def sharded_four_cards(seed: int, card: str, serve: dict,
     import tempfile
     n = torch.cuda.device_count()
     if n < 4:
-        log(f"sharded: 2 x 2 mesh skipped: {n} card(s), it needs 4 (not "
-            f"counted as a pass)")
+        log(f"sharded: 2 x 2 mesh and its preemption save skipped: {n} "
+            f"card(s), it needs 4 (not counted as a pass)")
         return {"skipped": f"{n} card(s)"}
     from repro_torch.configs import get_config
     vocab = get_config("qwen3-14b").vocab
@@ -4551,17 +4580,23 @@ def sharded_four_cards(seed: int, card: str, serve: dict,
         f"x (bound {REPLAY_REL_BOUND}), tokens agree {tok_agree:.3f}; "
         f"gemma3-1b losses {out['losses']} against {train_losses[:FOUR_CARD_STEPS]}"
         f" (max relative {max(rel):.3e}, bound {FOUR_CARD_LOSS_REL}); int8 "
-        f"pod sums bitwise the local sums: {out['pod_bitwise_all']}")
+        f"pod sums bitwise the local sums: {out['pod_bitwise_all']}; "
+        f"rank 1 alone got SIGTERM during step 1, checkpoints "
+        f"{out['preempt']}")
     require(out["local_heads"] == [20, 4], f"heads {out['local_heads']}")
     require(ld <= PREFILL_REL_BOUND * ls, f"four-card prefill {ld}")
     require(pd <= REPLAY_REL_BOUND * ps, f"four-card decode {pd}")
     require(max(rel) <= FOUR_CARD_LOSS_REL, f"four-card losses {rel}")
     require(out["pod_bitwise_all"], "int8 pod sum differs from the local")
+    require(out["preempt"] == {"step_00000002": [
+        "extra.json", *(f"host_{r}.npz" for r in range(4)), "meta.json"]},
+        f"preempted checkpoints {out['preempt']}")
     return {"seconds": secs, "local_heads": out["local_heads"],
             "prefill_rel_diff": ld / ls, "prefill_top1_agree": lsame,
             "decode_rel_diff": pd / ps, "decode_token_agree": tok_agree,
             "losses": out["losses"], "loss_rel_diff": max(rel),
-            "pod_bitwise": out["pod_bitwise_all"]}
+            "pod_bitwise": out["pod_bitwise_all"],
+            "preempt_checkpoints": out["preempt"]}
 
 
 def sharded(dev, seed: int, card: str, trained: dict, prefill10) -> dict:

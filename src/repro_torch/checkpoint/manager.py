@@ -22,7 +22,12 @@ checkpoint written by either package restores in the other.
   caller).
 * **preemption** — ``save_on_signal`` installs a SIGTERM handler that
   requests an immediate save at the next step boundary (the driving loop
-  polls ``should_save_now``).
+  polls ``should_save_now``).  Each process's handler sets only its own
+  request, so processes that save together first agree on it
+  (``agree_to_save``): all save at that boundary or none does.  The
+  reference saves per process, so ranks that see the signal at different
+  steps write different steps, and process 0 may rename a directory
+  before the others' files are in it.
 * **retention** — keep the newest ``keep`` checkpoints (``keep >= 1``),
   delete older.
 """
@@ -133,6 +138,18 @@ class CheckpointManager:
     @property
     def should_save_now(self) -> bool:
         return self._save_requested
+
+    def agree_to_save(self, device="cpu", group=None) -> bool:
+        """Whether any process of ``group`` (the world by default) has a
+        save request: one all-reduce MAX of this process's flag, a tensor
+        on ``device`` (the card under NCCL, the CPU under gloo).  A
+        collective: every process of the group calls it at every step
+        boundary, whether or not it is a ``save_every`` step."""
+        flag = torch.tensor([int(self._save_requested)], dtype=torch.int32,
+                            device=device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
+        return bool(flag.item())
 
     # ---- save/restore ----
     def _step_dir(self, step: int) -> str:

@@ -179,6 +179,26 @@ def batch_placements(mesh, batch: int) -> tuple:
     return placements(P(dp_entry(mesh, batch)), mesh)
 
 
+def on_local_blocks(fn, operands, specs, out_spec, mesh, **kw):
+    """``fn(*blocks, **kw)`` on each rank's own blocks, for a block whose
+    ops have no DTensor rule that holds up (or whose rules are slow to
+    search): operand i laid out by ``specs[i]``, the result back as a
+    DTensor laid out by ``out_spec``.  Every rank computes its own block
+    of the result, so an operand whole on a mesh axis that splits the
+    result gets its gradient as partial sums over that axis; elsewhere
+    its gradient comes back in its own layout."""
+    out_pl = placements(out_spec, mesh)
+
+    def block(t, spec):
+        pl = placements(spec, mesh)
+        grad_pl = tuple(Partial() if o.is_shard() and not q.is_shard()
+                        else q for q, o in zip(pl, out_pl))
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    out = fn(*(block(t, s) for t, s in zip(operands, specs)), **kw)
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
 def on_batch_shards(fn, module: nn.Module, x, *args):
     """``fn(params, x_local, *args)`` on each rank's batch block of the
     DTensor ``x``, with ``module``'s parameters gathered whole (a
@@ -187,15 +207,13 @@ def on_batch_shards(fn, module: nn.Module, x, *args):
     holds up (the SSM scan): data-parallel over its batch, each weight's
     gradient the sum of the ranks' partial ones."""
     mesh = x.device_mesh
-    pl = batch_placements(mesh, x.shape[0])
-    whole = (Replicate(),) * mesh.ndim
-    # ranks that hold other batch blocks hold partial weight gradients
-    grad_pl = tuple(Partial() if q.is_shard() else Replicate() for q in pl)
-    params = SimpleNamespace(**{
-        name: p.redistribute(mesh, whole).to_local(grad_placements=grad_pl)
-        for name, p in module.named_parameters()})
-    out = fn(params, x.redistribute(mesh, pl).to_local(), *args)
-    return DTensor.from_local(out, mesh, pl, run_check=False)
+    names, weights = zip(*module.named_parameters())
+    spec = P(dp_entry(mesh, x.shape[0]))
+
+    def run(x_local, *ws):
+        return fn(SimpleNamespace(**dict(zip(names, ws))), x_local, *args)
+    return on_local_blocks(run, (x, *weights),
+                           (spec,) + (P(),) * len(weights), spec, mesh)
 
 
 @contextlib.contextmanager
@@ -306,6 +324,28 @@ def in_layout(x):
     if not isinstance(x, DTensor):
         return x
     return _InLayout.apply(x)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def contiguous_grad(x):
+    """``x``, where a DTensor, whose gradient comes back contiguous.
+    DTensor's backward of a split keeps the stride its output's gradient
+    had, where the plain backward makes it contiguous; on a dimension of
+    size 1 (one kv head) that stride is free, and a reduction further back
+    (``rms_norm``'s over the head dimension) then sums in another order.
+    A plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return _ContiguousGrad.apply(x)
 
 
 def divisible(x, dim: int, n: int):

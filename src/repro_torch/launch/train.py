@@ -85,7 +85,9 @@ def train(arch: str = "qwen3-14b", smoke: bool = True, steps: int = 100,
     ``activation_sharding(mesh)``.  Every rank draws the same weights and
     batches from the seed.  A checkpoint then holds each process's own
     blocks (``host_<rank>.npz``) and restores into a run on the same
-    mesh."""
+    mesh.  With more than one rank, the ranks agree on a SIGTERM's save at
+    every step boundary (``CheckpointManager.agree_to_save``), so all of
+    them save the same step."""
     cfg = get_config(arch, smoke=smoke)
     pipe = DataPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                         seed=seed)
@@ -124,6 +126,7 @@ def train(arch: str = "qwen3-14b", smoke: bool = True, steps: int = 100,
 
     step_fn = make_train_step(cfg, lr=lr, accum_steps=accum_steps,
                               quantized_opt=quantized_opt)
+    agree = mesh is not None and mesh.size() > 1
     losses = []
     t0 = time.time()
     ctx = (activation_sharding(mesh) if mesh is not None
@@ -139,11 +142,14 @@ def train(arch: str = "qwen3-14b", smoke: bool = True, steps: int = 100,
                 print(f"[train] step {i:5d}  loss {loss:.4f}  "
                       f"gnorm {float(metrics['grad_norm']):.3f}  "
                       f"{dt:.1f}s", flush=True)
-            if mgr and (i % save_every == save_every - 1
-                        or mgr.should_save_now):
-                mgr.save(i + 1, _local_state(params, opt),
-                         extra={"step": i + 1,
-                                "pipeline": pipe.state.to_dict()})
+            if mgr:
+                # every rank joins the agreement at every boundary
+                now = (mgr.agree_to_save(mesh.device_type) if agree
+                       else mgr.should_save_now)
+                if i % save_every == save_every - 1 or now:
+                    mgr.save(i + 1, _local_state(params, opt),
+                             extra={"step": i + 1,
+                                    "pipeline": pipe.state.to_dict()})
     return params, losses
 
 

@@ -15,13 +15,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.sharding import (P, axis_sizes, divisible,
-                                              dp_entry, placements,
+                                              dp_entry, on_local_blocks,
                                               shard_act)
 from repro_torch.kernels.flash_attention import flash_gqa
 
@@ -138,6 +139,14 @@ def _sdpa_chunked(q, k, v, *, causal=True, window=None, softcap=None,
     return torch.cat(outs, dim=1)
 
 
+def _heads_entry(mesh, *counts):
+    """The spec entry of a head dimension: "model" where it divides every
+    head count in ``counts``, else None (whole)."""
+    model = axis_sizes(mesh).get("model")
+    return ("model" if model and all(c % model == 0 for c in counts)
+            else None)
+
+
 def on_head_shards(attend, q, k, v, **kw):
     """``attend(q, k, v, **kw)``; on DTensors, on each rank's own block.
 
@@ -154,13 +163,9 @@ def on_head_shards(attend, q, k, v, **kw):
     if not isinstance(q, DTensor):
         return attend(q, k, v, **kw)
     mesh = q.device_mesh
-    model = axis_sizes(mesh).get("model")
-    heads = ("model" if model and q.shape[2] % model == 0
-             and k.shape[2] % model == 0 else None)
-    pl = placements(P(dp_entry(mesh, q.shape[0]), None, heads), mesh)
-    q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
-    return DTensor.from_local(attend(q, k, v, **kw), mesh, pl,
-                              run_check=False)
+    spec = P(dp_entry(mesh, q.shape[0]), None,
+             _heads_entry(mesh, q.shape[2], k.shape[2]))
+    return on_local_blocks(attend, (q, k, v), (spec,) * 3, spec, mesh, **kw)
 
 
 def _seq_split(t) -> bool:
@@ -277,7 +282,9 @@ def _mla_qc(p: MLA, cfg, x, positions):
 
 def _mla_attend(p: MLA, cfg, q_nope, q_rope, c_kv, k_rope, mask):
     """Absorbed-weight MLA attention: scores in the compressed space, the
-    softmax in f32 and its weights back in the activations' type."""
+    softmax in f32 and its weights back in the activations' type; the
+    heads' outputs [B,S,H,vd], before ``wo``.  ``p`` gives ``wk_up`` and
+    ``wv_up``."""
     dt = q_nope.dtype
     # absorb wk_up into the query: q_c [B,S,H,r]
     q_c = torch.einsum("bshk,rhk->bshr", q_nope, p.wk_up.to(dt))
@@ -287,27 +294,55 @@ def _mla_attend(p: MLA, cfg, q_nope, q_rope, c_kv, k_rope, mask):
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(dt)
     ctx = torch.einsum("bhst,btr->bshr", w, c_kv)          # compressed context
-    out = torch.einsum("bshr,rhv->bshv", ctx, p.wv_up.to(dt))
-    return _out(p, out, dt)
+    return torch.einsum("bshr,rhv->bshv", ctx, p.wv_up.to(dt))
 
 
-def apply_mla(p: MLA, cfg, x, positions, qchunk: int = QCHUNK):
-    """Causal MLA over the whole sequence, over query blocks of ``qchunk``
-    rows (one block when S <= qchunk or S % qchunk)."""
-    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
-    s = x.shape[1]
-    j_idx = torch.arange(s, device=x.device)
+def _mla_causal(p, cfg, q_nope, q_rope, c_kv, k_rope, qchunk: int):
+    """Causal ``_mla_attend`` over query blocks of ``qchunk`` rows (one
+    block when S <= qchunk or S % qchunk)."""
+    s = q_nope.shape[1]
+    j_idx = torch.arange(s, device=q_nope.device)
     if s <= qchunk or s % qchunk != 0:
         mask = (j_idx[None, :] <= j_idx[:, None])[None, None]
         return _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, mask)
     outs = []
     for start in range(0, s, qchunk):
-        i_idx = start + torch.arange(qchunk, device=x.device)
+        i_idx = start + torch.arange(qchunk, device=q_nope.device)
         mask = (j_idx[None, :] <= i_idx[:, None])[None, None]
         blk = slice(start, start + qchunk)
         outs.append(_mla_attend(p, cfg, q_nope[:, blk], q_rope[:, blk], c_kv,
                                 k_rope, mask))
     return torch.cat(outs, dim=1)
+
+
+def apply_mla(p: MLA, cfg, x, positions, qchunk: int = QCHUNK):
+    """Causal MLA over the whole sequence, over query blocks of ``qchunk``
+    rows (one block when S <= qchunk or S % qchunk).
+
+    On DTensors the attention core (scores, softmax, compressed context
+    and the ``wv_up`` product) runs on each rank's own blocks: DTensor's
+    search for its backward's strategies on a 3D mesh takes hours.  The
+    queries and ``wk_up``/``wv_up`` go to heads over "model" where the
+    head count divides it, the queries' batch over the DP axes, and the
+    compressed KV and rope key, which have no head dimension, are whole
+    on "model"; ``wo`` then contracts the heads on the DTensors."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
+    if not isinstance(q_nope, DTensor):
+        out = _mla_causal(p, cfg, q_nope, q_rope, c_kv, k_rope, qchunk)
+        return _out(p, out, x.dtype)
+    mesh = q_nope.device_mesh
+    dp = dp_entry(mesh, q_nope.shape[0])
+    heads = _heads_entry(mesh, q_nope.shape[2])
+    q_spec, kv_spec, w_spec = P(dp, None, heads), P(dp), P(None, heads)
+
+    def core(qn, qr, c, k, wk_up, wv_up):
+        w = SimpleNamespace(wk_up=wk_up, wv_up=wv_up)
+        return _mla_causal(w, cfg, qn, qr, c, k, qchunk)
+    out = on_local_blocks(core, (q_nope, q_rope, c_kv, k_rope, p.wk_up,
+                                 p.wv_up),
+                          (q_spec, q_spec, kv_spec, kv_spec, w_spec, w_spec),
+                          q_spec, mesh)
+    return _out(p, out, x.dtype)
 
 
 def init_mla_cache(cfg, batch, max_len, dtype, device="cuda"):
@@ -330,7 +365,7 @@ def decode_mla(p: MLA, cfg, x, cache, pos: int):
     mask = (torch.arange(t, device=x.device) <= pos)[None, None, None]
     y = _mla_attend(p, cfg, q_nope, q_rope, cache["c_kv"].to(x.dtype),
                     cache["k_rope"].to(x.dtype), mask)
-    return y, cache
+    return _out(p, y, x.dtype), cache
 
 
 # ---------------------------------------------------------------------------

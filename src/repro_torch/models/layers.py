@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.sharding import in_layout
+from repro_torch.distributed.sharding import contiguous_grad, in_layout
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -128,6 +128,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., S, H, hd]; positions: [..., S].  Rotates the two halves of
     hd, with the angles in f32."""
+    x = contiguous_grad(x)          # a DTensor's gradient as the plain one's
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, x.device)             # [hd/2]
     ang = positions[..., :, None].float() * freqs             # [..., S, hd/2]

@@ -117,6 +117,15 @@ with mesh, activation_sharding(mesh):
     out["groups"] = moe_group_count(%(b)d * %(s)d)
     pre = jax.jit(make_prefill_step(cfg), in_shardings=(p_sh, b_sh["tokens"]))
     out["deepseek"] = np.asarray(pre(params, {"tokens": batch["tokens"]}))
+opt = adamw_init(params)
+opt_sh = type(opt)(step=rep, m=p_sh, v=p_sh)
+with mesh, activation_sharding(mesh):
+    step = jax.jit(make_train_step(cfg, lr=%(lr)r),
+                   in_shardings=(p_sh, opt_sh, b_sh))
+    p1, _, m = step(params, opt, batch)
+out["deepseek_train"] = {"params": jax.tree.map(np.asarray, p1),
+                         "loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"])}
 pickle.dump(out, open(d + "/reference.pkl", "wb"))
 """ % {"lr": LR, "b": B, "s": S, "cap": CAPACITY}
 
@@ -179,6 +188,28 @@ with activation_sharding(mesh):
     out["groups"] = moe_group_count(%(b)d * %(s)d)
     out["deepseek"] = full(make_prefill_step(cfg)(
         model, {"tokens": batch["tokens"]})).numpy()
+# deepseek's train step, MLA's attention core counted by its operand type
+from repro_torch.models import attention as A
+attend, out["mla_attend_types"] = A._mla_attend, []
+
+
+def counted(p, cfg, q_nope, *rest):
+    out["mla_attend_types"].append(type(q_nope).__name__)
+    return attend(p, cfg, q_nope, *rest)
+
+
+A._mla_attend = counted
+cfg, model = model_of("deepseek_v2_lite_16b", "deepseek",
+                      moe_capacity=%(cap)r)
+with activation_sharding(mesh):
+    model.requires_grad_(True)
+    model, _, m = make_train_step(cfg, lr=%(lr)r)(model, adamw_init(model),
+                                                  batch)
+    out["deepseek_train"] = {"params": {k: full(v).detach().numpy()
+                                        for k, v in model.state_dict().items()},
+                             "loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"])}
+A._mla_attend = attend
 # train(mesh=): four steps straight, and two then two more resumed from
 # each process's checkpoint (Q8 moments: whole on every rank)
 from repro_torch.launch.train import train
@@ -240,15 +271,35 @@ def _state(model) -> dict:
     return {k: v.detach().numpy() for k, v in model.state_dict().items()}
 
 
-def _unsharded_train(inputs):
-    cfg = configs.get_config("qwen3_14b", smoke=True)
-    model = _port_model("qwen3_14b", inputs, "qwen3").requires_grad_(True)
+def _unsharded_train(inputs, arch="qwen3_14b", key="qwen3", **changes):
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              **changes)
+    model = _port_model(arch, inputs, key).requires_grad_(True)
     batch = {k: torch.from_numpy(v).long() for k, v in inputs["batch"].items()}
     _, grads = steps.loss_and_grads(model, cfg, batch)
     model, _, m = steps.make_train_step(cfg, lr=LR)(model, adamw_init(model),
                                                     batch)
     return (_state(model), {k: float(v) for k, v in m.items()},
             {k: g.numpy() for k, g in grads.items()})
+
+
+def _hold_train_step(got, want, unsharded, cfg, inputs, key):
+    """A sharded train step's loss, grad_norm and parameters after it
+    (``got``) against the reference's 2x2 step (``want``) and the port's
+    unsharded one, at the bounds above.  Control: the parameters before
+    the step."""
+    after, metrics, grads = unsharded
+    want_p = _state(params_from_reference(want["params"], cfg,
+                                          device="cpu"))
+    for k in ("loss", "grad_norm"):
+        assert abs(got[k] - want[k]) <= LOSS_TOL * abs(want[k])
+        assert abs(got[k] - metrics[k]) <= SELF_TOL * abs(metrics[k])
+    assert _excess(got["params"], want_p, grads, True) <= STEP_TOL
+    assert _excess(got["params"], want_p, grads, False) <= STEP_ANY
+    assert _excess(got["params"], after, grads, True) <= STEP_TOL
+    assert _excess(got["params"], after, grads, False) <= STEP_ANY
+    before = _state(params_from_reference(inputs[key], cfg, device="cpu"))
+    assert _excess(before, want_p, grads, True) > STEP_TOL
 
 
 def _excess(got: dict, want: dict, grads: dict, floor: bool) -> float:
@@ -269,22 +320,36 @@ def test_train_step_2x2_against_reference_and_unsharded(runs):
     port's unsharded one.  Control: the parameters before the step."""
     inputs, ref, port = runs
     cfg = configs.get_config("qwen3_14b", smoke=True)
-    after, metrics, grads = _unsharded_train(inputs)
-    got, want = port["train"], ref["train"]
-    want_p = _state(params_from_reference(want["params"], cfg,
-                                          device="cpu"))
-    for key in ("loss", "grad_norm"):
-        assert abs(got[key] - want[key]) <= LOSS_TOL * abs(want[key])
-        assert abs(got[key] - metrics[key]) <= SELF_TOL * abs(metrics[key])
-    assert _excess(got["params"], want_p, grads, True) <= STEP_TOL
-    assert _excess(got["params"], want_p, grads, False) <= STEP_ANY
-    assert _excess(got["params"], after, grads, True) <= STEP_TOL
-    assert _excess(got["params"], after, grads, False) <= STEP_ANY
-    before = _state(_port_model("qwen3_14b", inputs, "qwen3"))
-    assert _excess(before, want_p, grads, True) > STEP_TOL
+    _hold_train_step(port["train"], ref["train"], _unsharded_train(inputs),
+                     cfg, inputs, "qwen3")
     # the parameters really were sharded: heads over "model", embed over "data"
     assert "Shard(dim=1)" in port["placements"]["layers.0.attn.wq"]
     assert "Shard(dim=0)" in port["placements"]["layers.0.attn.wq"]
+
+
+def test_deepseek_train_step_2x2_on_local_mla_blocks(runs):
+    """deepseek's smoke train step on 2 x 2, MLA's attention core on each
+    rank's own blocks: held as qwen3's step is, against the reference's
+    2x2 step and the port's unsharded step at two dispatch groups (the
+    mesh's, at a capacity factor of CAPACITY).  Every ``_mla_attend``
+    call under the mesh took plain tensors."""
+    inputs, ref, port = runs
+    cfg = dataclasses.replace(configs.get_config("deepseek_v2_lite_16b",
+                                                 smoke=True),
+                              moe_capacity=CAPACITY)
+    from repro_torch.models import moe
+    orig = moe.apply_moe
+    moe.apply_moe = lambda *a, **k: orig(*a, **dict(k, groups=2))
+    try:
+        unsharded = _unsharded_train(inputs, "deepseek_v2_lite_16b",
+                                     "deepseek", moe_capacity=CAPACITY)
+    finally:
+        moe.apply_moe = orig
+    _hold_train_step(port["deepseek_train"], ref["deepseek_train"],
+                     unsharded, cfg, inputs, "deepseek")
+    # each layer's forward, and again where remat recomputes it
+    assert len(port["mla_attend_types"]) >= cfg.num_layers
+    assert set(port["mla_attend_types"]) == {"Tensor"}
 
 
 def test_serve_step_sharded_cache_2x2(runs):

@@ -263,3 +263,51 @@ def test_block_tp_reduction_carries_bf16(fake_world):
         assert counts["c10d_functional.all_reduce"] == len(rec.dtypes) >= 2
         seen[dtype] = set(rec.dtypes)
     assert seen == {"bfloat16": {torch.bfloat16}, "float32": {torch.float32}}
+
+
+@pytest.fixture
+def one_rank_world():
+    """A gloo world of one rank in this process, closed after."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_one_kv_head_gradients_bitwise_on_a_mesh(one_rank_world,
+                                                 monkeypatch):
+    """gemma3's smoke config (one kv head) on a (1, 1) mesh: the loss and
+    every gradient bitwise the plain model's (ROADMAP fault 27).  The
+    key's gradient came back through DTensor's backward of the rope's
+    split with another stride on the size-1 head dimension, and
+    ``rms_norm``'s backward summed over it in another order.  Control:
+    with ``contiguous_grad`` the identity, some gradient differs."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import layers
+
+    mesh = make_smoke_mesh((1, 1), ("data", "model"), device_type="cpu")
+    cfg = configs.get_config("gemma3-1b", smoke=True)
+    assert cfg.num_kv_heads == 1
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))).long()
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    loss, want = loss_and_grads(
+        T.init_model(cfg, 0, "cpu").requires_grad_(True), cfg, batch)
+
+    def on_mesh():
+        model = S.distribute_model(T.init_model(cfg, 0, "cpu"), mesh)
+        b = {k: S.distribute(v, S.P("data", None), mesh)
+             for k, v in batch.items()}
+        with S.activation_sharding(mesh):
+            got_loss, got = loss_and_grads(model.requires_grad_(True), cfg, b)
+        return S.full(got_loss), {k: S.full(g) for k, g in got.items()}
+
+    got_loss, got = on_mesh()
+    assert torch.equal(got_loss, loss)
+    for k, g in want.items():
+        assert torch.equal(got[k], g), k
+    monkeypatch.setattr(layers, "contiguous_grad", lambda x: x)
+    _, faulty = on_mesh()
+    assert any(not torch.equal(faulty[k], g) for k, g in want.items())
