@@ -244,6 +244,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    rank 1 alone gets SIGTERM during step 1, after which all four ranks
    save step 2 and exit; on one card that part is logged as skipped, not
    passed;
+13e. every model family's sharded smoke steps on a 2 x 2 ("data",
+   "model") mesh: for each of the ten smoke configs ``train(mesh=)`` for
+   three steps of two microbatches (seamless: its train step with seeded
+   encoder frames), one prefill (llava with frontend embeddings, seamless
+   with encoder frames) and, for mamba2, jamba and seamless, two serve
+   steps on caches laid out by ``cache_shardings``, each held against the
+   same steps unsharded on this machine (losses within 1e-5 relative,
+   logits within 1e-4); four processes of this script with
+   ``--family-worker`` over NCCL where there are four cards, else four
+   gloo processes on the host's CPU, logged as a host run of this
+   machine's PyTorch, not a card run; one line a config, and any config
+   that raises or misses a bound fails the script;
 14. the kernels line (JSON; each kernel also with its launches in config
    A, in the disk tier, in calibration, in the tuned factor, in the
    served pair, through the shim and in phase 10e's training steps, all
@@ -4638,6 +4650,250 @@ def sharded(dev, seed: int, card: str, trained: dict, prefill10) -> dict:
     return out
 
 
+# Phase 13e: every model family's sharded smoke steps on a 2 x 2 ("data",
+# "model") mesh, held against the same steps unsharded on the same
+# machine, at the CPU tests' bounds (tests/test_torch_sharded_steps.py's
+# SELF_TOL for losses, MODEL_TOL for logits; those tests tie the unsharded
+# steps to the reference).  With four cards the four ranks run over NCCL,
+# one a card; with fewer, the same workers run as four gloo processes on
+# the host's CPU: a host run of this machine's PyTorch, not a card run,
+# which sees a DTensor sharding rule that this PyTorch refuses but not the
+# card's backward on the autograd engine's own thread.
+# FAMILY_TRAIN: rows a step, sequence, microbatches (one row a "data" rank
+# a microbatch; the SSM chunk, 8, divides the sequence).
+FAMILY_TRAIN = (4, 64, 2)
+FAMILY_STEPS = 3
+FAMILY_LR = 1e-3
+FAMILY_CACHE = 32
+FAMILY_SELF_TOL = 1e-5
+FAMILY_MODEL_TOL = 1e-4
+FAMILY_TIMEOUT_S = 300
+
+
+def family_steps(arch: str, dev, seed: int, mesh=None) -> dict:
+    """13e's steps of one smoke config, on ``mesh`` or (None) whole on
+    ``dev``: ``train`` for FAMILY_STEPS steps of two microbatches
+    (seamless: its train step on the pipeline's batches with seeded
+    encoder frames, which ``train`` does not draw), one prefill with the
+    family's frontend or encoder inputs, and for the SSM, hybrid and
+    encoder-decoder configs two serve steps on caches laid out by
+    ``cache_shardings``."""
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.distributed.sharding import (P, activation_sharding,
+                                                  distribute,
+                                                  distribute_model, dp_entry,
+                                                  full)
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.launch.train import device_batch, train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cfg = get_config(arch, smoke=True)
+    rows, seq, accum = FAMILY_TRAIN
+    extra = model_inputs(cfg, torch.Generator().manual_seed(seed), rows,
+                         "cpu")
+    # the prefill and the decode at a microbatch's rows: the shapes whose
+    # DTensor sharding strategies the train step has already searched
+    mb = rows // accum
+
+    def lay(x):
+        x = x.to(dev)
+        if mesh is None:
+            return x
+        return distribute(x, P(dp_entry(mesh, x.shape[0])), mesh)
+
+    def model():
+        m = T.init_model(cfg, seed, dev)
+        return m if mesh is None else distribute_model(m, mesh)
+
+    def ctx():
+        return (contextlib.nullcontext() if mesh is None
+                else activation_sharding(mesh))
+
+    out = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cfg.is_encdec:
+            params = model().requires_grad_(True)
+            opt = adamw_init(params)
+            step = make_train_step(cfg, lr=FAMILY_LR, accum_steps=accum)
+            pipe = DataPipeline(cfg.vocab, seq, rows, seed=seed)
+            out["losses"] = []
+            with ctx():
+                for _ in range(FAMILY_STEPS):
+                    batch = {**device_batch(next(pipe), "cpu"), **extra}
+                    params, opt, m = step(params, opt, {
+                        k: lay(v) for k, v in batch.items()})
+                    out["losses"].append(float(m["loss"]))
+        else:
+            params, out["losses"] = train(
+                arch, smoke=True, steps=FAMILY_STEPS, batch=rows, seq=seq,
+                lr=FAMILY_LR, mesh=mesh, accum_steps=accum, seed=seed,
+                device=dev, log_every=FAMILY_STEPS)
+    out["train_s"] = time.perf_counter() - t0
+    if mesh is not None:
+        axis = mesh.mesh_dim_names.index("model")
+        out["model_split"] = [k for k, p in params.named_parameters()
+                              if p.placements[axis].is_shard()]
+    del params
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (mb, seq))).long()
+    extra = {k: v[:mb] for k, v in extra.items()}
+    params = model()
+    with torch.no_grad(), ctx():
+        logits = make_prefill_step(cfg)(params, {
+            "tokens": lay(tokens), **{k: lay(v) for k, v in extra.items()}})
+        out["logits"] = full(logits)[:, :cfg.vocab].cpu()
+        if cfg.family in ("ssm", "hybrid", "encdec"):
+            cache = T.init_cache(cfg, mb, FAMILY_CACHE, torch.float32, dev)
+            if mesh is not None:
+                cache = [{k: distribute(t, sh[k], mesh) for k, t in c.items()}
+                         for c, sh in zip(cache, S.cache_shardings(cfg, cache,
+                                                                   mesh))]
+            enc_out = (T.apply_encoder(params, cfg, lay(extra["enc_embeds"]))
+                       if cfg.is_encdec else None)
+            serve, tok = make_serve_step(cfg), lay(tokens[:, :1])
+            l1, cache = serve(params, cache, tok, 0, enc_out)
+            l2, _ = serve(params, cache, tok + 1, 1, enc_out)
+            out["serve"] = [full(x)[..., :cfg.vocab].cpu() for x in (l1, l2)]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def family_worker(rank: str, d: str, backend: str, seed: int) -> int:
+    """One process of 13e: ``rank`` 0-3 of the 2 x 2 mesh (NCCL on card
+    ``rank``, or gloo on the CPU), or "plain", the same steps unsharded
+    (on the first card, or the CPU).  Every config's steps run; one that
+    raises is recorded with its traceback, and the ranks meet at a barrier
+    before the next.  Rank 0 and "plain" write their readings to ``d``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_smoke_mesh
+    on_card = backend == "nccl"
+    r = 0 if rank == "plain" else int(rank)
+    dev = torch.device("cuda", r) if on_card else torch.device("cpu")
+    mesh = None
+    if rank != "plain":
+        if on_card:
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=f"file://{d}/store", rank=r, world_size=4,
+            timeout=datetime.timedelta(seconds=FAMILY_TIMEOUT_S))
+        mesh = make_smoke_mesh((2, 2), ("data", "model"),
+                               device_type=dev.type)
+    out = {"torch": torch.__version__}
+    for arch in ARCHS:
+        try:
+            out[arch] = family_steps(arch, dev, seed, mesh)
+        except Exception:
+            out[arch] = {"error": traceback.format_exc()[-6000:]}
+        if mesh is not None:
+            dist.barrier()
+    if rank in ("0", "plain"):
+        torch.save(out, f"{d}/{rank}.pt")
+    if mesh is not None:
+        dist.destroy_process_group()
+    return 0
+
+
+def _rel_over(got, want, tol: float) -> tuple:
+    """(max |got - want|, the largest |got - want| / (tol + tol |want|)):
+    the second is at most 1 where ``np.allclose(got, want, tol, tol)``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(got - want)
+    return float(d.max()), float((d / (tol + tol * np.abs(want))).max())
+
+
+def sharded_families(seed: int, card: str) -> dict:
+    """13e: the ten smoke configs' sharded steps (``family_worker``, four
+    ranks and the unsharded run as five processes of this script), each
+    held against its unsharded run: losses within FAMILY_SELF_TOL
+    relative, prefill and decode logits within FAMILY_MODEL_TOL; a weight
+    of each config split over "model".  One line a config."""
+    import os
+    import tempfile
+    from repro_torch.configs import ARCHS
+    nccl = torch.cuda.device_count() >= 4
+    where = (f"four cards over NCCL [{card}]" if nccl else
+             "host run: four gloo processes on this machine's CPU, not a "
+             "card run")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = {r: subprocess.Popen(
+            [sys.executable, str(Path(__file__)), "--family-worker", r, d,
+             "nccl" if nccl else "gloo", "--seed", str(seed)], env=env,
+            stderr=open(f"{d}/{r}.err", "w"))
+            for r in ("plain", "0", "1", "2", "3")}
+        deadline = time.perf_counter() + FAMILY_TIMEOUT_S + 60
+        codes = {}
+        for r, p in procs.items():
+            try:
+                codes[r] = p.wait(timeout=max(1.0, deadline
+                                              - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                codes[r] = None
+        for r, p in procs.items():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            if codes[r] != 0:
+                log(f"sharded families: worker {r} exited {codes[r]}:\n"
+                    f"{Path(f'{d}/{r}.err').read_text()[-3000:]}")
+        require(set(codes.values()) == {0}, f"13e workers exited {codes}")
+        got, want = (torch.load(f"{d}/{r}.pt", weights_only=False)
+                     for r in ("0", "plain"))
+    secs = time.perf_counter() - t_phase
+    log(f"sharded families: 2 x 2 ('data', 'model'), {where}, torch "
+        f"{got['torch']}, {secs:.1f}s")
+    out, failed = {"where": where, "torch": got["torch"], "seconds": secs,
+                   "nccl": nccl}, []
+    for arch in ARCHS:
+        g, w = got[arch], want[arch]
+        if "error" in g or "error" in w:
+            log(f"sharded families: {arch} [{got['torch']}] raised:\n"
+                f"{g.get('error') or w.get('error')}")
+            out[arch] = {"error": (g.get("error") or w["error"])[-600:]}
+            failed.append(arch)
+            continue
+        rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                      w["losses"]))
+        lerr, lover = _rel_over(g["logits"], w["logits"], FAMILY_MODEL_TOL)
+        serve = [_rel_over(a, b, FAMILY_MODEL_TOL)
+                 for a, b in zip(g.get("serve", []), w.get("serve", []))]
+        ok = (rel <= FAMILY_SELF_TOL and lover <= 1
+              and all(o <= 1 for _, o in serve) and len(g["model_split"]) > 0
+              and len(g["losses"]) == FAMILY_STEPS)
+        log(f"sharded families: {arch} [torch {got['torch']}] losses "
+            f"{g['losses']} against {w['losses']} (max relative {rel:.3e}, "
+            f"bound {FAMILY_SELF_TOL}); prefill logits max|diff| {lerr:.3e} "
+            f"({lover:.3f} of the bound, atol = rtol = {FAMILY_MODEL_TOL})"
+            + "".join(f"; decode step {i} max|diff| {e:.3e} ({o:.3f} of the "
+                      f"bound)" for i, (e, o) in enumerate(serve))
+            + f"; {len(g['model_split'])} parameters split over 'model' "
+            f"({g['model_split'][0] if g['model_split'] else None}); "
+            f"{g['seconds']:.1f}s sharded, {w['seconds']:.1f}s unsharded")
+        out[arch] = {"losses": g["losses"], "plain_losses": w["losses"],
+                     "loss_rel_diff": rel, "logit_max_abs": lerr,
+                     "logit_of_bound": lover,
+                     "decode": [{"max_abs": e, "of_bound": o}
+                                for e, o in serve],
+                     "model_split": len(g["model_split"]),
+                     "seconds": g["seconds"], "plain_seconds": w["seconds"]}
+        if not ok:
+            failed.append(arch)
+    require(not failed, f"13e: sharded steps failed or missed their bound "
+            f"for {failed} ({where}, torch {got['torch']})")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32768)
@@ -4648,11 +4904,16 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sharded-worker", nargs=2, metavar=("RANK", "DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--family-worker", nargs=3,
+                    metavar=("RANK", "DIR", "BACKEND"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.sharded_worker:
         sys.path.insert(0, str(ROOT / "src"))
         return sharded_worker(int(args.sharded_worker[0]),
                               args.sharded_worker[1], args.seed)
+    if args.family_worker:
+        sys.path.insert(0, str(ROOT / "src"))
+        return family_worker(*args.family_worker, args.seed)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "a card", file=sys.stderr)
@@ -4744,6 +5005,8 @@ def main() -> int:
     torch.cuda.empty_cache()                    # 13. the sharded path
     shard = sharded(dev, args.seed, card, trained, handoff["prefill"])
     lap("13 sharded")
+    shard["families"] = sharded_families(args.seed, card)   # 13e
+    lap("13e sharded families")
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

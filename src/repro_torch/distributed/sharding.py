@@ -333,16 +333,25 @@ class _ContiguousGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g.contiguous()
+        g = g.contiguous()
+        local = g.to_local()
+        if local.is_contiguous():
+            return g
+        return DTensor.from_local(local.contiguous(), g.device_mesh,
+                                  g.placements, run_check=False,
+                                  shape=g.shape, stride=g.stride())
 
 
 def contiguous_grad(x):
-    """``x``, where a DTensor, whose gradient comes back contiguous.
-    DTensor's backward of a split keeps the stride its output's gradient
-    had, where the plain backward makes it contiguous; on a dimension of
-    size 1 (one kv head) that stride is free, and a reduction further back
-    (``rms_norm``'s over the head dimension) then sums in another order.
-    A plain tensor as it is."""
+    """``x``, where a DTensor, whose gradient comes back contiguous, its
+    own block too.  DTensor's backward of a split keeps the stride its
+    output's gradient had, where the plain backward makes it contiguous;
+    on a dimension of size 1 (one kv head) that stride is free, and a
+    reduction further back (``rms_norm``'s over the head dimension) then
+    sums in another order.  And a gradient made of a block
+    (:func:`on_local_blocks`) keeps the block's strides under contiguous
+    global ones, which DTensor's views further back cannot take.  A plain
+    tensor as it is."""
     if not isinstance(x, DTensor):
         return x
     return _ContiguousGrad.apply(x)
@@ -403,16 +412,35 @@ def activation_sharding(mesh, seq_sharded: bool = False,
     sharded (DP, "model", -) between blocks (Megatron-style SP).
     bf16_all_reduce: kept for the reference's options; see
     :func:`residual_barrier`."""
+    with _entered({"mesh": mesh, "seq": seq_sharded,
+                   "attn_sp": attn_seq_parallel,
+                   "sp": residual_seq_parallel, "bf16_ar": bf16_all_reduce}):
+        yield
+
+
+@contextlib.contextmanager
+def _entered(ctx):
+    """The activation-sharding context ``ctx`` (None: none)."""
+    if ctx is None:
+        yield
+        return
     from torch.distributed.tensor.experimental import implicit_replication
-    tok = _ACT_CTX.set({"mesh": mesh, "seq": seq_sharded,
-                        "attn_sp": attn_seq_parallel,
-                        "sp": residual_seq_parallel,
-                        "bf16_ar": bf16_all_reduce})
+    tok = _ACT_CTX.set(ctx)
     try:
         with implicit_replication():
             yield
     finally:
         _ACT_CTX.reset(tok)
+
+
+def recompute_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: (the forward's context,
+    the recompute's).  The recompute runs in the backward, which on a card
+    runs on the autograd engine's own thread, where this thread's
+    :func:`activation_sharding` context is not set; it enters the
+    forward's context again, so that ``shard_act`` and
+    :func:`moe_group_count` see what the forward saw."""
+    return contextlib.nullcontext(), _entered(_ACT_CTX.get())
 
 
 def _div(dim: int, mesh, axes) -> bool:

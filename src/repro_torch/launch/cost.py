@@ -21,7 +21,7 @@ with the H100 SXM datasheet's constants; those are model readings, not
 measurements.
 
 Debug view (the counterpart of ``tools/hlo_debug.py``): the breakdown by
-module of one dry-run cell,
+module, and by op and local shapes, of one dry-run cell,
   PYTHONPATH=src python -m repro_torch.launch.cost <arch> <shape> [multi]
 """
 from __future__ import annotations
@@ -92,6 +92,8 @@ class _Meter(TorchDispatchMode):
         self.tracker = None
         self.per_module = collections.defaultdict(
             lambda: {"flops": 0, "hbm_bytes": 0, "collective_bytes": 0})
+        self.per_op = collections.defaultdict(
+            lambda: {"flops": 0, "count": 0})
         if by_module:
             from torch.utils.module_tracker import ModuleTracker
             self.tracker = ModuleTracker()
@@ -134,6 +136,11 @@ class _Meter(TorchDispatchMode):
         if rec is not None:
             rec["flops"] += f
             rec["hbm_bytes"] += b
+            if f:
+                op = self.per_op[f"{name} " + " x ".join(
+                    str(tuple(t.shape)) for t in _tensors(args))]
+                op["flops"] += f
+                op["count"] += 1
         return out
 
 
@@ -164,8 +171,9 @@ def _quiet_sharding_propagation(meter: _Meter):
 def analyze_step(fn, *args, by_module: bool = False, **kwargs):
     """Run ``fn(*args, **kwargs)`` once and count, per device: {"flops",
     "hbm_bytes", "collectives": {"bytes", "counts", "total_bytes",
-    "total_count", "comm_debug_counts"}, "result"} (and "by_module" when
-    asked: the counts of the innermost module each op ran in)."""
+    "total_count", "comm_debug_counts"}, "result"} (and "by_module" and
+    "by_op" when asked: the counts of the innermost module each op ran in,
+    and the flops and calls of each op at its local operand shapes)."""
     from torch.distributed.tensor.debug import CommDebugMode
     meter = _Meter(by_module)
     comm = CommDebugMode()
@@ -187,6 +195,7 @@ def analyze_step(fn, *args, by_module: bool = False, **kwargs):
     }
     if by_module:
         out["by_module"] = {k: dict(v) for k, v in meter.per_module.items()}
+        out["by_op"] = {k: dict(v) for k, v in meter.per_op.items()}
     return out
 
 
@@ -248,6 +257,10 @@ def main(argv=None):
         print(f"{name[:60]:60s} {r['flops'] / 1e9:12.1f} "
               f"{r['hbm_bytes'] / 1e9:10.2f} "
               f"{r['collective_bytes'] / 1e9:9.3f}")
+    ops = sorted(rec["by_op"].items(), key=lambda kv: -kv[1]["flops"])
+    print(f"{'op at local shapes':60s} {'GFLOP':>12s} {'calls':>10s}")
+    for name, r in ops[:30]:
+        print(f"{name[:60]:60s} {r['flops'] / 1e9:12.1f} {r['count']:10d}")
     print("total flops %.4e  hbm %.4e  collective bytes %.4e" % (
         rec["hlo_flops"], rec["hlo_hbm_bytes"],
         rec["collectives"]["total_bytes"]))

@@ -161,6 +161,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     }
     if by_module:
         rec["by_module"] = stats["by_module"]
+        rec["by_op"] = stats["by_op"]
     return rec
 
 

@@ -21,9 +21,9 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import (P, axis_sizes, divisible,
-                                              dp_entry, on_local_blocks,
-                                              shard_act)
+from repro_torch.distributed.sharding import (P, axis_sizes, contiguous_grad,
+                                              divisible, dp_entry,
+                                              on_local_blocks, shard_act)
 from repro_torch.kernels.flash_attention import flash_gqa
 
 from .layers import apply_rope, const, dense, dtype_of, rms_norm
@@ -147,6 +147,29 @@ def _heads_entry(mesh, *counts):
             else None)
 
 
+def _kv_run(mesh, h: int, kvh: int):
+    """The kv heads [lo, hi) that this rank's block of query heads reads,
+    where "model" splits the h query heads but not the kvh kv heads, and
+    each rank's query heads lie within whole kv heads (one kv head shared
+    by several ranks, or several kv heads a rank); else None."""
+    m = axis_sizes(mesh).get("model", 1)
+    if m == 1 or h % m or not kvh % m:
+        return None
+    hl, g = h // m, h // kvh
+    if g % hl and hl % g:
+        return None
+    c = mesh.get_local_rank("model")
+    return c * hl // g, ((c + 1) * hl - 1) // g + 1
+
+
+def _on_kv_run(q, k, v, *, attend, run, **kw):
+    """``attend`` on q and the kv heads [lo, hi) of ``run``, copied out
+    contiguous: the flash wrapper launches on contiguous operands only."""
+    lo, hi = run
+    return attend(q, k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous(),
+                  **kw)
+
+
 def on_head_shards(attend, q, k, v, **kw):
     """``attend(q, k, v, **kw)``; on DTensors, on each rank's own block.
 
@@ -157,21 +180,46 @@ def on_head_shards(attend, q, k, v, **kw):
     the kv head counts divide it, the sequence whole: a causal block
     needs every key before it) and ``attend`` runs on the local blocks.
     Head h of a block still reads kv head h // (H // KV) of the same
-    block, as in the whole tensors.  Decode's attention over the cache
-    runs here too; the chunked prefill attention runs on the DTensors
-    themselves."""
+    block, as in the whole tensors.  Where "model" divides the query heads
+    but not the kv heads, the kv heads stay whole and each rank reads the
+    run of them its query heads use (:func:`_kv_run`); their gradients
+    come back as partial sums over "model".  Decode's attention over the
+    cache and the chunked attention (:func:`_attend`) run here too."""
     if not isinstance(q, DTensor):
         return attend(q, k, v, **kw)
     mesh = q.device_mesh
-    spec = P(dp_entry(mesh, q.shape[0]), None,
-             _heads_entry(mesh, q.shape[2], k.shape[2]))
-    return on_local_blocks(attend, (q, k, v), (spec,) * 3, spec, mesh, **kw)
+    dp = dp_entry(mesh, q.shape[0])
+    heads = _heads_entry(mesh, q.shape[2], k.shape[2])
+    run = None if heads else _kv_run(mesh, q.shape[2], k.shape[2])
+    if run is None:
+        spec = P(dp, None, heads)
+        return on_local_blocks(attend, (q, k, v), (spec,) * 3, spec, mesh,
+                               **kw)
+    q_spec, kv_spec = P(dp, None, "model"), P(dp)
+    return on_local_blocks(_on_kv_run, (q, k, v), (q_spec, kv_spec, kv_spec),
+                           q_spec, mesh, attend=attend, run=run, **kw)
 
 
 def _seq_split(t) -> bool:
     """Whether a DTensor's sequence (dimension 1) is split."""
     return isinstance(t, DTensor) and any(
         q.is_shard(1) for q in t.placements)
+
+
+def _attend(q, k, v, **kw):
+    """``_sdpa_chunked(q, k, v, **kw)``; on DTensors, on each rank's own
+    head block (:func:`on_head_shards`), but for queries whose sequence is
+    split (context parallelism), which run on the DTensors themselves.
+    DTensor's view rules in some PyTorch versions refuse the einsum's
+    flatten of a batch split over the DP axes with kv heads split over
+    "model"."""
+    if _seq_split(q):
+        return _sdpa_chunked(q, k, v, **kw)
+    # a block's gradients keep the einsums' strides, which DTensor's views
+    # further back cannot take (the rope's input makes q's and k's
+    # contiguous)
+    v = contiguous_grad(v)
+    return on_head_shards(_sdpa_chunked, q, k, v, **kw)
 
 
 def apply_gqa(p: GQA, cfg, x, positions, window=None, flash=flash_gqa):
@@ -187,8 +235,8 @@ def apply_gqa(p: GQA, cfg, x, positions, window=None, flash=flash_gqa):
                              bq=min(512, x.shape[1]),
                              bk=min(512, x.shape[1]))
     else:
-        out = _sdpa_chunked(q, k, v, causal=True, window=window,
-                            softcap=cfg.attn_logit_softcap)
+        out = _attend(q, k, v, causal=True, window=window,
+                      softcap=cfg.attn_logit_softcap)
     out = shard_act(out, "attn_q")
     return _out(p, out, x.dtype)
 
@@ -385,7 +433,9 @@ def cross_kv(p: GQA, enc_out):
 def apply_cross(p: GQA, cfg, x, enc_kv):
     """Every query of ``x`` over every encoder position (no mask)."""
     k, v = enc_kv
-    out = _sdpa_chunked(_proj(x, p.wq), k, v, causal=False)
+    # no rope here to make q's and k's gradients contiguous (see _attend)
+    out = _attend(contiguous_grad(_proj(x, p.wq)), contiguous_grad(k), v,
+                  causal=False)
     return _out(p, out, x.dtype)
 
 
@@ -394,6 +444,5 @@ def apply_cross(p: GQA, cfg, x, enc_kv):
 
 def apply_bidir(p: GQA, cfg, x, positions):
     q, k, v = _qkv(p, cfg, x, positions)
-    out = _sdpa_chunked(q, k, v, causal=False,
-                        softcap=cfg.attn_logit_softcap)
+    out = _attend(q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
     return _out(p, out, x.dtype)

@@ -31,8 +31,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import (in_layout, residual_barrier,
-                                              shard_act)
+from repro_torch.distributed.sharding import (in_layout, recompute_context,
+                                              residual_barrier, shard_act)
 from repro_torch.kernels.flash_attention import flash_gqa
 
 from . import attention as attn
@@ -255,7 +255,8 @@ def forward(params: Model, cfg: ModelConfig, tokens, frontend_embeds=None,
         group = layers[start:start + g]
         if remat:
             x = checkpoint(_apply_layers, group, cfg, x, positions, enc_out,
-                           flash, use_reentrant=False)
+                           flash, use_reentrant=False,
+                           context_fn=recompute_context)
         else:
             x = _apply_layers(group, cfg, x, positions, enc_out, flash)
     x = _apply_layers(layers[stop:], cfg, x, positions, enc_out, flash)
