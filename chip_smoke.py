@@ -248,14 +248,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    "model") mesh: for each of the ten smoke configs ``train(mesh=)`` for
    three steps of two microbatches (seamless: its train step with seeded
    encoder frames), one prefill (llava with frontend embeddings, seamless
-   with encoder frames) and, for mamba2, jamba and seamless, two serve
-   steps on caches laid out by ``cache_shardings``, each held against the
-   same steps unsharded on this machine (losses within 1e-5 relative,
-   logits within 1e-4); four processes of this script with
+   with encoder frames) and serve steps at positions 0, 1, 15, 16 and 31
+   of caches laid out by ``cache_shardings`` (gemma3's and deepseek's
+   with their sequence split over "model"); then one train step and the
+   prefill under each of the reference dry-run's other layouts
+   (``seq_sharded``, with the serve steps at one row on caches whose
+   sequence is split over "data", as in long_500k;
+   ``residual_seq_parallel``; ``attn_seq_parallel``), each held against
+   the same steps unsharded on this machine (losses within 1e-5
+   relative, logits within 1e-4); four processes of this script with
    ``--family-worker`` over NCCL where there are four cards, else four
    gloo processes on the host's CPU, logged as a host run of this
-   machine's PyTorch, not a card run; one line a config, and any config
-   that raises or misses a bound fails the script;
+   machine's PyTorch, not a card run; one line a config and layout, and
+   any config that raises or misses a bound fails the script;
 14. the kernels line (JSON; each kernel also with its launches in config
    A, in the disk tier, in calibration, in the tuned factor, in the
    served pair, through the shim and in phase 10e's training steps, all
@@ -4665,19 +4670,35 @@ FAMILY_TRAIN = (4, 64, 2)
 FAMILY_STEPS = 3
 FAMILY_LR = 1e-3
 FAMILY_CACHE = 32
+# the serve steps' positions: the first two, either side of the boundary of
+# a cache split in two over its sequence, and the cache's last slot
+FAMILY_POSITIONS = (0, 1, 15, 16, 31)
+# the reference dry-run's other layouts (``activation_sharding``'s
+# options); seq_sharded also decodes at one row on caches whose sequence is
+# split over "data" (long_500k)
+FAMILY_LAYOUTS = {"seq_sharded": {"seq_sharded": True},
+                  "residual_seq_parallel": {"residual_seq_parallel": True},
+                  "attn_seq_parallel": {"attn_seq_parallel": True}}
 FAMILY_SELF_TOL = 1e-5
 FAMILY_MODEL_TOL = 1e-4
 FAMILY_TIMEOUT_S = 300
+# the workers' whole run (about two and a half minutes as host processes)
+FAMILY_DEADLINE_S = 900
 
 
 def family_steps(arch: str, dev, seed: int, mesh=None) -> dict:
     """13e's steps of one smoke config, on ``mesh`` or (None) whole on
-    ``dev``: ``train`` for FAMILY_STEPS steps of two microbatches
-    (seamless: its train step on the pipeline's batches with seeded
-    encoder frames, which ``train`` does not draw), one prefill with the
-    family's frontend or encoder inputs, and for the SSM, hybrid and
-    encoder-decoder configs two serve steps on caches laid out by
-    ``cache_shardings``."""
+    ``dev``.  In the default layout: ``train`` for FAMILY_STEPS steps of
+    two microbatches (seamless: its train step on the pipeline's batches
+    with seeded encoder frames, which ``train`` does not draw), one
+    prefill with the family's frontend or encoder inputs, and serve steps
+    at FAMILY_POSITIONS on caches laid out by ``cache_shardings``.  Then,
+    under each of FAMILY_LAYOUTS, one train step on a microbatch of the
+    pipeline's first batch and the prefill, and under ``seq_sharded``
+    the serve steps at one row on caches laid out by
+    ``cache_shardings(seq_sharded=True)`` (the reference dry-run's
+    long_500k layout).  Unsharded, the layouts' steps are one: ``step``
+    and ``serve_row``."""
     import io
 
     from repro_torch.configs import get_config
@@ -4710,9 +4731,48 @@ def family_steps(arch: str, dev, seed: int, mesh=None) -> dict:
         m = T.init_model(cfg, seed, dev)
         return m if mesh is None else distribute_model(m, mesh)
 
-    def ctx():
+    def ctx(**layout):
         return (contextlib.nullcontext() if mesh is None
-                else activation_sharding(mesh))
+                else activation_sharding(mesh, **layout))
+
+    def one_step(layout):
+        """One train step on the first microbatch of the pipeline's first
+        batch."""
+        pipe = DataPipeline(cfg.vocab, seq, rows, seed=seed)
+        batch = {**device_batch(next(pipe), "cpu"), **extra}
+        batch = {k: lay(v[:mb]) for k, v in batch.items()}
+        params = model().requires_grad_(True)
+        t = time.perf_counter()
+        with ctx(**layout):
+            _, _, m = make_train_step(cfg, lr=FAMILY_LR)(
+                params, adamw_init(params), batch)
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "seconds": time.perf_counter() - t}
+
+    def prefill(layout):
+        with torch.no_grad(), ctx(**layout):
+            logits = make_prefill_step(cfg)(model(), {
+                "tokens": lay(tokens),
+                **{k: lay(v[:mb]) for k, v in extra.items()}})
+        return full(logits)[:, :cfg.vocab].cpu()
+
+    def decode(b, layout, cache_seq=False):
+        params = model()
+        cache = T.init_cache(cfg, b, FAMILY_CACHE, torch.float32, dev)
+        if mesh is not None:
+            cache = [{k: distribute(t, sh[k], mesh) for k, t in c.items()}
+                     for c, sh in zip(cache, S.cache_shardings(
+                         cfg, cache, mesh, seq_sharded=cache_seq))]
+        out = []
+        with torch.no_grad(), ctx(**layout):
+            enc_out = (T.apply_encoder(params, cfg,
+                                       lay(extra["enc_embeds"][:b]))
+                       if cfg.is_encdec else None)
+            serve, tok = make_serve_step(cfg), lay(tokens[:b, :1])
+            for i, pos in enumerate(FAMILY_POSITIONS):
+                lg, cache = serve(params, cache, tok + i, pos, enc_out)
+                out.append(full(lg)[..., :cfg.vocab].cpu())
+        return out
 
     out = {}
     t0 = time.perf_counter()
@@ -4742,24 +4802,26 @@ def family_steps(arch: str, dev, seed: int, mesh=None) -> dict:
     del params
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (mb, seq))).long()
-    extra = {k: v[:mb] for k, v in extra.items()}
-    params = model()
-    with torch.no_grad(), ctx():
-        logits = make_prefill_step(cfg)(params, {
-            "tokens": lay(tokens), **{k: lay(v) for k, v in extra.items()}})
-        out["logits"] = full(logits)[:, :cfg.vocab].cpu()
-        if cfg.family in ("ssm", "hybrid", "encdec"):
-            cache = T.init_cache(cfg, mb, FAMILY_CACHE, torch.float32, dev)
-            if mesh is not None:
-                cache = [{k: distribute(t, sh[k], mesh) for k, t in c.items()}
-                         for c, sh in zip(cache, S.cache_shardings(cfg, cache,
-                                                                   mesh))]
-            enc_out = (T.apply_encoder(params, cfg, lay(extra["enc_embeds"]))
-                       if cfg.is_encdec else None)
-            serve, tok = make_serve_step(cfg), lay(tokens[:, :1])
-            l1, cache = serve(params, cache, tok, 0, enc_out)
-            l2, _ = serve(params, cache, tok + 1, 1, enc_out)
-            out["serve"] = [full(x)[..., :cfg.vocab].cpu() for x in (l1, l2)]
+    out["logits"] = prefill({})
+    out["serve"] = decode(mb, {})
+    if mesh is None:
+        out["step"] = one_step({})
+        out["serve_row"] = decode(1, {})
+    else:
+        out["default_s"] = time.perf_counter() - t0
+        out["layouts"] = {}
+        for name, layout in FAMILY_LAYOUTS.items():
+            t = time.perf_counter()
+            try:
+                res = out["layouts"][name] = {"step": one_step(layout),
+                                              "logits": prefill(layout)}
+                if layout.get("seq_sharded"):
+                    res["serve"] = decode(1, layout, cache_seq=True)
+                res["seconds"] = time.perf_counter() - t
+            except Exception:
+                import traceback
+                out["layouts"][name] = {
+                    "error": traceback.format_exc()[-6000:]}
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -4811,12 +4873,22 @@ def _rel_over(got, want, tol: float) -> tuple:
     return float(d.max()), float((d / (tol + tol * np.abs(want))).max())
 
 
+def _decode_line(serve: list, where: str = "") -> str:
+    """The log's words for serve steps' ``_rel_over`` readings."""
+    return "".join(f"; decode{where} at position {p} max|diff| {e:.3e} "
+                   f"({o:.3f} of the bound)"
+                   for p, (e, o) in zip(FAMILY_POSITIONS, serve))
+
+
 def sharded_families(seed: int, card: str) -> dict:
     """13e: the ten smoke configs' sharded steps (``family_worker``, four
     ranks and the unsharded run as five processes of this script), each
     held against its unsharded run: losses within FAMILY_SELF_TOL
     relative, prefill and decode logits within FAMILY_MODEL_TOL; a weight
-    of each config split over "model".  One line a config."""
+    of each config split over "model"; then each of FAMILY_LAYOUTS' train
+    step (loss and grad_norm within FAMILY_SELF_TOL relative), prefill and,
+    under seq_sharded, one-row decode against the unsharded ones.  One line
+    a config and layout."""
     import os
     import tempfile
     from repro_torch.configs import ARCHS
@@ -4832,7 +4904,7 @@ def sharded_families(seed: int, card: str) -> dict:
              "nccl" if nccl else "gloo", "--seed", str(seed)], env=env,
             stderr=open(f"{d}/{r}.err", "w"))
             for r in ("plain", "0", "1", "2", "3")}
-        deadline = time.perf_counter() + FAMILY_TIMEOUT_S + 60
+        deadline = time.perf_counter() + FAMILY_DEADLINE_S
         codes = {}
         for r, p in procs.items():
             try:
@@ -4867,7 +4939,7 @@ def sharded_families(seed: int, card: str) -> dict:
                                                       w["losses"]))
         lerr, lover = _rel_over(g["logits"], w["logits"], FAMILY_MODEL_TOL)
         serve = [_rel_over(a, b, FAMILY_MODEL_TOL)
-                 for a, b in zip(g.get("serve", []), w.get("serve", []))]
+                 for a, b in zip(g["serve"], w["serve"], strict=True)]
         ok = (rel <= FAMILY_SELF_TOL and lover <= 1
               and all(o <= 1 for _, o in serve) and len(g["model_split"]) > 0
               and len(g["losses"]) == FAMILY_STEPS)
@@ -4875,8 +4947,7 @@ def sharded_families(seed: int, card: str) -> dict:
             f"{g['losses']} against {w['losses']} (max relative {rel:.3e}, "
             f"bound {FAMILY_SELF_TOL}); prefill logits max|diff| {lerr:.3e} "
             f"({lover:.3f} of the bound, atol = rtol = {FAMILY_MODEL_TOL})"
-            + "".join(f"; decode step {i} max|diff| {e:.3e} ({o:.3f} of the "
-                      f"bound)" for i, (e, o) in enumerate(serve))
+            + _decode_line(serve)
             + f"; {len(g['model_split'])} parameters split over 'model' "
             f"({g['model_split'][0] if g['model_split'] else None}); "
             f"{g['seconds']:.1f}s sharded, {w['seconds']:.1f}s unsharded")
@@ -4886,7 +4957,40 @@ def sharded_families(seed: int, card: str) -> dict:
                      "decode": [{"max_abs": e, "of_bound": o}
                                 for e, o in serve],
                      "model_split": len(g["model_split"]),
-                     "seconds": g["seconds"], "plain_seconds": w["seconds"]}
+                     "seconds": g["seconds"],
+                     "default_seconds": g["default_s"],
+                     "plain_seconds": w["seconds"], "layouts": {}}
+        for name in FAMILY_LAYOUTS:
+            lg = g["layouts"][name]
+            if "error" in lg:
+                log(f"sharded families: {arch} under {name} "
+                    f"[{got['torch']}] raised:\n{lg['error']}")
+                out[arch]["layouts"][name] = {"error": lg["error"][-600:]}
+                ok = False
+                continue
+            step = {k: abs(lg["step"][k] - w["step"][k]) / abs(w["step"][k])
+                    for k in ("loss", "grad_norm")}
+            lerr, lover = _rel_over(lg["logits"], w["logits"],
+                                    FAMILY_MODEL_TOL)
+            serve = [_rel_over(a, b, FAMILY_MODEL_TOL) for a, b in
+                     zip(lg.get("serve", []),
+                         w["serve_row"] if "serve" in lg else [],
+                         strict=True)]
+            ok_l = (max(step.values()) <= FAMILY_SELF_TOL and lover <= 1
+                    and all(o <= 1 for _, o in serve))
+            log(f"sharded families: {arch} under {name} [torch "
+                f"{got['torch']}] train step loss and grad_norm relative "
+                f"{step['loss']:.3e}, {step['grad_norm']:.3e} (bound "
+                f"{FAMILY_SELF_TOL}); prefill logits max|diff| {lerr:.3e} "
+                f"({lover:.3f} of the bound)"
+                + _decode_line(serve, " at one row")
+                + f"; {lg['seconds']:.1f}s")
+            out[arch]["layouts"][name] = {
+                "seconds": lg["seconds"],
+                "step_rel_diff": step, "logit_max_abs": lerr,
+                "logit_of_bound": lover,
+                "decode": [{"max_abs": e, "of_bound": o} for e, o in serve]}
+            ok = ok and ok_l
         if not ok:
             failed.append(arch)
     require(not failed, f"13e: sharded steps failed or missed their bound "

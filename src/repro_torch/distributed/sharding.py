@@ -168,6 +168,56 @@ def like_param(g, p):
     return g
 
 
+class _Rows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape = tuple(table.shape)
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        mesh, k = tokens.device_mesh, tokens.ndim
+        # the gradient keeps its own splits (a partial sum reduced); the
+        # tokens follow its splits of their dimensions and are whole
+        # elsewhere, so the gradient, not the tokens, stays where it is
+        g_pl = tuple(q if type(q) is Shard else Replicate()
+                     for q in g.placements)
+        gl = g.redistribute(mesh, g_pl).to_local()
+        tl = tokens.redistribute(mesh, tuple(
+            q if q.is_shard() and q.dim < k else Replicate()
+            for q in g_pl)).to_local()
+        grad = gl.new_zeros((ctx.shape[0], *gl.shape[k:])).index_put_(
+            (tl,), gl, accumulate=True)
+        # a split of the tokens leaves each rank a partial sum; a split of
+        # the gradient's features splits the table's
+        out_pl = tuple(Partial() if q.is_shard() and q.dim < k
+                       else Shard(q.dim - k + 1) if q.is_shard()
+                       else Replicate() for q in g_pl)
+        stride = tuple(math.prod(ctx.shape[i + 1:])
+                       for i in range(len(ctx.shape)))
+        return DTensor.from_local(grad, mesh, out_pl, run_check=False,
+                                  shape=ctx.shape, stride=stride), None
+
+
+def rows(table, tokens):
+    """``table[tokens]``.  On a DTensor table the backward (each token's
+    gradient summed into its row) runs on each rank's own block of the
+    gradient as it arrives, the tokens gathered to match it: a split of
+    the tokens' dimensions leaves partial sums of the table, a split of
+    the features a split table.  PyTorch 2.11's sharding rule for that
+    ``index_put`` maps a gradient split over its batch onto the table as
+    an unnormalised ``Shard(-1)`` and raises."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, table.device_mesh,
+                                    (Replicate(),) * table.device_mesh.ndim,
+                                    run_check=False)
+    return _Rows.apply(table, tokens)
+
+
 def full(x):
     """A DTensor's full value as a plain tensor; anything else as it is."""
     return x.full_tensor() if isinstance(x, DTensor) else x
@@ -179,15 +229,110 @@ def batch_placements(mesh, batch: int) -> tuple:
     return placements(P(dp_entry(mesh, batch)), mesh)
 
 
-def on_local_blocks(fn, operands, specs, out_spec, mesh, **kw):
+def spec_of(x) -> P:
+    """The spec of DTensor ``x``'s layout: each dimension with the mesh
+    axes that split it, in mesh order (a partial sum is not a split)."""
+    dims = [[] for _ in range(x.ndim)]
+    for name, q in zip(x.device_mesh.mesh_dim_names, x.placements):
+        if q.is_shard():
+            dims[q.dim].append(name)
+    out = [None if not d else d[0] if len(d) == 1 else tuple(d)
+           for d in dims]
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def seq_split(t) -> bool:
+    """Whether a DTensor's sequence (dimension 1) is split."""
+    return isinstance(t, DTensor) and any(
+        q.is_shard(1) for q in t.placements)
+
+
+def sequence_whole(x):
+    """A DTensor ``x`` [B, S, ...] whose sequence is split (``seq_sharded``,
+    ``residual_seq_parallel``) with its sequence whole: each mesh axis that
+    splits the sequence splits the batch instead where it is a DP axis and
+    the batch's splits still divide B (an all-to-all), and is whole
+    otherwise (an all-gather); the batch's own splits stay.  Its gradient
+    goes back to ``x``'s own layout.  Anything else as it is.
+
+    The models call it where a block takes the residual stream, as
+    Megatron's sequence parallelism gathers the sequence before a block's
+    column-parallel products: PyTorch 2.11's DTensor refuses the flatten
+    of a split sequence that a product [B, S, d] @ [d, f] makes, and 2.13's
+    strided layout of it takes the MoE's dispatch groups apart into the
+    wrong tokens."""
+    if not seq_split(x):
+        return x
+    mesh = x.device_mesh
+    dp = _names(_dp(mesh))
+    split = math.prod(mesh.size(i) for i, q in enumerate(x.placements)
+                      if q.is_shard(0))
+    pl = []
+    for i, (name, q) in enumerate(zip(mesh.mesh_dim_names, x.placements)):
+        if q.is_shard(1):
+            if name in dp and x.shape[0] % (split * mesh.size(i)) == 0:
+                q, split = Shard(0), split * mesh.size(i)
+            else:
+                q = Replicate()
+        pl.append(q)
+    return x.redistribute(mesh, tuple(pl))
+
+
+def block_range(x, dim: int) -> tuple:
+    """(start, stop) of this rank's block of DTensor ``x``'s dimension
+    ``dim``, which its splits divide evenly (nested in mesh order, as
+    :func:`placements` lays them out).  Plain arithmetic on the mesh
+    coordinate, so it holds under ``FakeTensorMode`` too."""
+    mesh, n = x.device_mesh, x.shape[dim]
+    start = 0
+    for i, (c, q) in enumerate(zip(mesh.get_coordinate(), x.placements)):
+        if q.is_shard(dim):
+            n //= mesh.size(i)
+            start += c * n
+    return start, start + n
+
+
+def write_position(buf, pos: int, value) -> None:
+    """``buf[:, pos] = value[:, 0]`` in place, cast to ``buf``'s type, for
+    a cache ``buf`` [B, T, ...] and a new entry ``value`` [B, 1, ...].
+
+    On a DTensor cache each rank writes its own block: the one rank (on
+    each other axis) whose block of the sequence holds global position
+    ``pos`` writes it at its local index, the others write nothing.  The
+    new entry goes to the cache's layout with its sequence whole, which
+    moves the entry only, never the cache.  (DTensor's own ``buf[:, pos] =
+    ...`` on a split sequence writes into a gathered copy, and the cache
+    does not change.)"""
+    if not isinstance(buf, DTensor):
+        buf[:, pos] = value[:, 0].to(buf.dtype)
+        return
+    mesh = buf.device_mesh
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+    entry = value.redistribute(mesh, tuple(
+        Replicate() if q.is_shard(1) else q for q in buf.placements))
+    start, stop = block_range(buf, 1)
+    if start <= pos < stop:
+        buf.to_local()[:, pos - start] = entry.to_local()[:, 0].to(buf.dtype)
+
+
+def on_local_blocks(fn, operands, specs, out_spec, mesh, partial=None,
+                    **kw):
     """``fn(*blocks, **kw)`` on each rank's own blocks, for a block whose
     ops have no DTensor rule that holds up (or whose rules are slow to
     search): operand i laid out by ``specs[i]``, the result back as a
-    DTensor laid out by ``out_spec``.  Every rank computes its own block
-    of the result, so an operand whole on a mesh axis that splits the
-    result gets its gradient as partial sums over that axis; elsewhere
-    its gradient comes back in its own layout."""
-    out_pl = placements(out_spec, mesh)
+    DTensor laid out by ``out_spec``, and a partial sum over the mesh axes
+    of the spec entry ``partial`` (those that split a dimension ``fn``
+    contracts).
+    Every rank computes its own block of the result, so an operand whole
+    on a mesh axis that splits the result gets its gradient as partial
+    sums over that axis; elsewhere its gradient comes back in its own
+    layout."""
+    out_pl = tuple(Partial() if name in _names(partial) else q for name, q
+                   in zip(mesh.mesh_dim_names, placements(out_spec, mesh)))
 
     def block(t, spec):
         pl = placements(spec, mesh)

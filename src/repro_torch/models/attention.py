@@ -21,9 +21,12 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import (P, axis_sizes, contiguous_grad,
-                                              divisible, dp_entry,
-                                              on_local_blocks, shard_act)
+from repro_torch.distributed.sharding import (P, axis_sizes, block_range,
+                                              contiguous_grad, divisible,
+                                              dp_entry, on_local_blocks,
+                                              placements,
+                                              seq_split, shard_act, spec_of,
+                                              write_position)
 from repro_torch.kernels.flash_attention import flash_gqa
 
 from .layers import apply_rope, const, dense, dtype_of, rms_norm
@@ -74,27 +77,66 @@ def _qkv(p: GQA, cfg, x, positions):
 
 
 def _out(p: GQA, out: torch.Tensor, dtype) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd")."""
+    """einsum("bshk,hkd->bsd").  Where ``out``'s sequence is split (the
+    context-parallel queries), on each rank's own rows against the whole
+    weight: DTensor's product would flatten the split sequence."""
     h, k, d = p.wo.shape
+    if seq_split(out):
+        spec = spec_of(out)
+        return on_local_blocks(_rows_out, (out, p.wo.to(dtype)), (spec, P()),
+                               P(*spec[:2]), out.device_mesh)
     return (divisible(out.flatten(-2), -1, h)
             @ divisible(p.wo.to(dtype).reshape(h * k, d), 0, h))
 
 
-def _sdpa(q, k, v, mask, softcap=None):
-    """q: [B,S,H,hd], k/v: [B,T,KV,hd]; grouped-query broadcast."""
+def _rows_out(out, wo):
+    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _scores(q, k, softcap=None):
+    """The scores [B,KV,G,S,T] in f32 of q [B,S,H,hd] against k [B,T,KV,hd]
+    (grouped-query broadcast), scaled and softcapped, before the mask."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
-    g = h // kvh
-    q = divisible(q, 2, kvh).reshape(b, s, kvh, g, hd)
+    q = divisible(q, 2, kvh).reshape(b, s, kvh, h // kvh, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k).float()
     scores = scores / math.sqrt(hd)
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
-    scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return scores
+
+
+def _weighted(w, v):
+    """The heads' outputs [B,S,H,hd] of softmax weights w [B,KV,G,S,T] over
+    v [B,T,KV,hd]."""
+    b, kvh, g, s, _ = w.shape
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
     # the gradient coming back may split the heads where kvh cannot
-    return divisible(out.reshape(b, s, h, hd), 2, kvh)
+    return divisible(out.reshape(b, s, kvh * g, v.shape[-1]), 2, kvh)
+
+
+def _sdpa(q, k, v, mask, softcap=None):
+    """q: [B,S,H,hd], k/v: [B,T,KV,hd]; grouped-query broadcast."""
+    scores = torch.where(mask, _scores(q, k, softcap), NEG_INF)
+    return _weighted(torch.softmax(scores, dim=-1).to(q.dtype), v)
+
+
+def _sdpa_split_cache(q, k, v, mask, softcap=None):
+    """``_sdpa`` for decode over a cache k, v whose sequence is split: the
+    scores and the weighted sum on each rank's own blocks (q's heads split
+    as the cache's kv heads), the masked softmax on the DTensor scores
+    (their [B,KV,G,1,T] gathered over the split, never the cache), and the
+    output's partial sums over the split reduced."""
+    mesh = k.device_mesh
+    spec = tuple(spec_of(k)) + (None,) * 3
+    b, t, kv = spec[:3]
+    q_spec, s_spec = P(b, None, kv), P(b, kv, None, None, t)
+    scores = on_local_blocks(_scores, (q, k), (q_spec, P(*spec)), s_spec,
+                             mesh, softcap=softcap)
+    w = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1).to(q.dtype)
+    out = on_local_blocks(_weighted, (w, v), (s_spec, P(*spec)), q_spec,
+                          mesh, partial=t)
+    return out.redistribute(mesh, placements(q_spec, mesh))
 
 
 def causal_mask(s: int, window=None, device=None):
@@ -122,18 +164,19 @@ def _block_mask(i_idx, j_idx, causal, window):
 
 
 def _sdpa_chunked(q, k, v, *, causal=True, window=None, softcap=None,
-                  qchunk: int = QCHUNK):
+                  qchunk: int = QCHUNK, q_offset: int = 0):
     """Exact attention over query blocks of ``qchunk`` rows (one block when
-    S <= qchunk or S % qchunk); live scores are [B,KV,G,Qc,T]."""
+    S <= qchunk or S % qchunk); live scores are [B,KV,G,Qc,T].  Query row
+    i sits at position ``q_offset + i`` (a block of a split sequence)."""
     b, s, h, hd = q.shape
     j_idx = torch.arange(k.shape[1], device=q.device)
     if s <= qchunk or s % qchunk != 0:
-        mask = _block_mask(torch.arange(s, device=q.device), j_idx, causal,
-                           window)
+        mask = _block_mask(q_offset + torch.arange(s, device=q.device),
+                           j_idx, causal, window)
         return _sdpa(q, k, v, mask, softcap)
     outs = []
     for start in range(0, s, qchunk):
-        i_idx = start + torch.arange(qchunk, device=q.device)
+        i_idx = q_offset + start + torch.arange(qchunk, device=q.device)
         mask = _block_mask(i_idx, j_idx, causal, window)
         outs.append(_sdpa(q[:, start:start + qchunk], k, v, mask, softcap))
     return torch.cat(outs, dim=1)
@@ -200,21 +243,29 @@ def on_head_shards(attend, q, k, v, **kw):
                            q_spec, mesh, attend=attend, run=run, **kw)
 
 
-def _seq_split(t) -> bool:
-    """Whether a DTensor's sequence (dimension 1) is split."""
-    return isinstance(t, DTensor) and any(
-        q.is_shard(1) for q in t.placements)
+def on_query_blocks(attend, q, k, v, **kw):
+    """``attend(q, k, v, q_offset=, **kw)`` on each rank's own block of
+    query rows, for queries whose sequence is split (context parallelism):
+    q in its own layout, k and v with the same batch split and their
+    sequence and heads whole, and ``q_offset`` the global position of the
+    block's first row.  k's and v's gradients come back as partial sums
+    over the axes that split the queries' sequence."""
+    q_spec = spec_of(q)
+    kv_spec = P(q_spec[0] if q_spec else None)
+    return on_local_blocks(attend, (q, k, v), (q_spec, kv_spec, kv_spec),
+                           q_spec, q.device_mesh,
+                           q_offset=block_range(q, 1)[0], **kw)
 
 
 def _attend(q, k, v, **kw):
     """``_sdpa_chunked(q, k, v, **kw)``; on DTensors, on each rank's own
-    head block (:func:`on_head_shards`), but for queries whose sequence is
-    split (context parallelism), which run on the DTensors themselves.
-    DTensor's view rules in some PyTorch versions refuse the einsum's
-    flatten of a batch split over the DP axes with kv heads split over
-    "model"."""
-    if _seq_split(q):
-        return _sdpa_chunked(q, k, v, **kw)
+    head block (:func:`on_head_shards`), or for queries whose sequence is
+    split (context parallelism) on its own block of query rows
+    (:func:`on_query_blocks`).  DTensor's view rules in some PyTorch
+    versions refuse the einsum's flatten of a batch split over the DP axes
+    with kv heads split over "model", or with a split sequence."""
+    if seq_split(q):
+        return on_query_blocks(_sdpa_chunked, q, k, v, **kw)
     # a block's gradients keep the einsums' strides, which DTensor's views
     # further back cannot take (the rope's input makes q's and k's
     # contiguous)
@@ -268,8 +319,8 @@ def decode_gqa(p: GQA, cfg, x, cache, pos: int, window=None):
     q, k, v = _qkv(p, cfg, x, positions)
     t_buf = cache["k"].shape[1]
     slot = pos % t_buf
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    write_position(cache["k"], slot, k)
+    write_position(cache["v"], slot, v)
     j = torch.arange(t_buf, device=x.device)[None, :]
     gpos = pos - torch.remainder(pos - j, t_buf)
     mask = gpos >= 0
@@ -277,8 +328,8 @@ def decode_gqa(p: GQA, cfg, x, cache, pos: int, window=None):
         mask &= (pos - gpos) < window
     mask = mask[None, None, None]                       # [1,1,1,1,Tb]
     ck, cv = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
-    if _seq_split(ck):      # long context: the DTensors merge the softmax
-        out = _sdpa(q, ck, cv, mask, cfg.attn_logit_softcap)
+    if seq_split(ck):
+        out = _sdpa_split_cache(q, ck, cv, mask, cfg.attn_logit_softcap)
     else:
         out = on_head_shards(_sdpa, q, ck, cv, mask=mask,
                              softcap=cfg.attn_logit_softcap)
@@ -407,8 +458,8 @@ def decode_mla(p: MLA, cfg, x, cache, pos: int):
     pos = int(pos)
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
-    cache["c_kv"][:, pos] = c_kv[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, pos] = k_rope[:, 0].to(cache["k_rope"].dtype)
+    write_position(cache["c_kv"], pos, c_kv)
+    write_position(cache["k_rope"], pos, k_rope)
     t = cache["c_kv"].shape[1]
     mask = (torch.arange(t, device=x.device) <= pos)[None, None, None]
     y = _mla_attend(p, cfg, q_nope, q_rope, cache["c_kv"].to(x.dtype),

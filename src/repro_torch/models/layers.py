@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.sharding import contiguous_grad, in_layout
+from repro_torch.distributed.sharding import contiguous_grad, in_layout, rows
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -160,7 +160,7 @@ def embed_tokens(p: Embedding, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     # the rows first, then the cast: the values of the reference's
     # cast-then-gather without a cast copy of the whole table
-    return in_layout(p.tok)[tokens].to(dtype)
+    return rows(in_layout(p.tok), tokens).to(dtype)
 
 
 def unembed(p_out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

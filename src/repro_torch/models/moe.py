@@ -190,7 +190,9 @@ def apply_moe(p: MoE, cfg, x: torch.Tensor,
     ``moe_group_count`` (one group a "data" rank inside an
     ``activation_sharding`` context, else 1), and a count that does not
     divide the tokens falls back to 1.  On DTensors each rank dispatches
-    its own groups."""
+    its own groups; ``x``'s sequence is whole there (a block's input,
+    ``transformer._block_in``), so that the flatten keeps the groups the
+    reference's ``divisible(xt, 0, groups)`` forms."""
     bsz, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = bsz * s

@@ -32,7 +32,8 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (in_layout, recompute_context,
-                                              residual_barrier, shard_act)
+                                              residual_barrier,
+                                              sequence_whole, shard_act)
 from repro_torch.kernels.flash_attention import flash_gqa
 
 from . import attention as attn
@@ -87,16 +88,24 @@ def _block_out(h):
     return shard_act(h, "hidden")
 
 
+def _block_in(x, norm, eps: float):
+    """A block's input: the residual stream ``x`` normed, its sequence
+    whole where a layout splits it (``sequence_whole``: Megatron's gather
+    before the column-parallel products; :func:`_block_out` splits it
+    again).  The norm alone outside a mesh."""
+    return sequence_whole(rms_norm(x, norm, eps))
+
+
 def _cross_and_ffn(p: Layer, cfg: ModelConfig, x, enc_out):
     if cfg.is_encdec and enc_out is not None:
-        h = rms_norm(x, p.cross_ln, cfg.norm_eps)
+        h = _block_in(x, p.cross_ln, cfg.norm_eps)
         x = x + _block_out(attn.apply_cross(
             p.cross, cfg, h, attn.cross_kv(p.cross, enc_out)))
     if hasattr(p, "moe"):
-        h = rms_norm(x, p.ln2, cfg.norm_eps)
+        h = _block_in(x, p.ln2, cfg.norm_eps)
         return x + _block_out(moe_mod.apply_moe(p.moe, cfg, h))
     if hasattr(p, "mlp"):
-        h = rms_norm(x, p.ln2, cfg.norm_eps)
+        h = _block_in(x, p.ln2, cfg.norm_eps)
         return x + _block_out(apply_mlp(p.mlp, h, cfg.mlp_act))
     return x
 
@@ -104,7 +113,7 @@ def _cross_and_ffn(p: Layer, cfg: ModelConfig, x, enc_out):
 def apply_layer(p: Layer, cfg: ModelConfig, idx: int, x, positions,
                 enc_out=None, flash=flash_gqa):
     x = shard_act(x, "hidden")
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    h = _block_in(x, p.ln1, cfg.norm_eps)
     if cfg.layer_kind(idx) == "ssm":
         h = ssm_mod.apply_ssm(p.ssm, cfg, h)
     elif cfg.mla:
@@ -211,11 +220,11 @@ def apply_encoder(params: Model, cfg: ModelConfig, enc_embeds):
     x = enc_embeds
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for lp in params.encoder:
-        h = rms_norm(x, lp.ln1, cfg.norm_eps)
+        h = _block_in(x, lp.ln1, cfg.norm_eps)
         x = x + _block_out(attn.apply_bidir(lp.attn, cfg, h, positions))
-        h = rms_norm(x, lp.ln2, cfg.norm_eps)
+        h = _block_in(x, lp.ln2, cfg.norm_eps)
         x = x + _block_out(apply_mlp(lp.mlp, h, cfg.mlp_act))
-    return rms_norm(x, params.enc_final_norm, cfg.norm_eps)
+    return sequence_whole(rms_norm(x, params.enc_final_norm, cfg.norm_eps))
 
 
 def _apply_layers(layers, cfg: ModelConfig, x, positions, enc_out, flash):
@@ -234,11 +243,13 @@ def forward(params: Model, cfg: ModelConfig, tokens, frontend_embeds=None,
     path (see ``attention.apply_gqa``).  Under grad with ``cfg.remat`` each
     scanned group is rematerialised."""
     dtype = dtype_of(cfg.dtype)
-    x = shard_act(embed_tokens(params.embed, tokens, dtype), "hidden")
+    x = embed_tokens(params.embed, tokens, dtype)
     if frontend_embeds is not None:
         # modality stub: frontend embeddings overwrite the leading positions
+        # (before the layout, which may split the sequence)
         n = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(dtype), x[:, n:]], dim=1)
+    x = shard_act(x, "hidden")
     enc_out = None
     if cfg.is_encdec:
         if enc_embeds is None:
@@ -266,7 +277,7 @@ def forward(params: Model, cfg: ModelConfig, tokens, frontend_embeds=None,
 def logits_from_hidden(params: Model, cfg: ModelConfig, hidden):
     out = (in_layout(params.embed.tok).T if cfg.tie_embeddings
            else params.unembed.out)
-    logits = unembed(out, hidden)
+    logits = unembed(out, sequence_whole(hidden))
     if cfg.padded_vocab != cfg.vocab:
         # mask the padding columns (never predicted, zero softmax mass); a
         # DTensor's vocab may be sharded, so it takes the out-of-place mask

@@ -68,14 +68,18 @@ from repro.optim.adamw import adamw_init
 
 d = sys.argv[1]
 inp = pickle.load(open(d + "/inputs.pkl", "rb"))
-mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+lay = inp["layout"]
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(inp["mesh"]),
+            ("data", "model"))
 rep = NamedSharding(mesh, P())
 out = {}
 
 def split(x):
+    if x.shape[0] %% mesh.shape["data"]:
+        return rep
     return NamedSharding(mesh, P("data", *(None,) * (x.ndim - 1)))
 
-for arch in inp["archs"]:
+for arch in inp["ref_archs"]:
     res = out[arch] = {}
     try:
         cfg = get_config(arch, smoke=True)
@@ -86,44 +90,53 @@ for arch in inp["archs"]:
         feed = {k: v for k, v in batch.items() if k != "labels"}
         opt = adamw_init(params)
         opt_sh = type(opt)(step=rep, m=p_sh, v=p_sh)
-        with mesh, activation_sharding(mesh):
-            pre = jax.jit(make_prefill_step(cfg),
-                          in_shardings=(p_sh, {k: b_sh[k] for k in feed}))
-            res["prefill"] = np.asarray(pre(params, feed))
-            step = jax.jit(make_train_step(cfg, lr=%(lr)r),
-                           in_shardings=(p_sh, opt_sh, b_sh))
-            p1, _, m = step(params, opt, batch)
-            res["train"] = {"params": jax.tree.map(np.asarray, p1),
-                            "loss": float(m["loss"]),
-                            "grad_norm": float(m["grad_norm"])}
+        with mesh, activation_sharding(
+                mesh, seq_sharded=lay["seq"], attn_seq_parallel=lay["attn_sp"],
+                residual_seq_parallel=lay["sp"]):
+            if "prefill" in inp["steps"]:
+                pre = jax.jit(make_prefill_step(cfg),
+                              in_shardings=(p_sh, {k: b_sh[k] for k in feed}))
+                res["prefill"] = np.asarray(pre(params, feed))
+            if "train" in inp["steps"]:
+                step = jax.jit(make_train_step(cfg, lr=%(lr)r),
+                               in_shardings=(p_sh, opt_sh, b_sh))
+                p1, _, m = step(params, opt, batch)
+                res["train"] = {"params": jax.tree.map(np.asarray, p1),
+                                "loss": float(m["loss"]),
+                                "grad_norm": float(m["grad_norm"])}
             if arch in inp["decode"]:
-                cache = T.init_cache(cfg, %(b)d, %(cache)d, jnp.float32)
-                cache_sh = S.cache_shardings(cfg, cache, mesh)
-                tok = batch["tokens"][:, :1]
+                b = inp["decode_batch"]
+                cache = T.init_cache(cfg, b, %(cache)d, jnp.float32)
+                cache_sh = S.cache_shardings(cfg, cache, mesh,
+                                             seq_sharded=lay["cache_seq"])
+                tok = batch["tokens"][:b, :1]
                 args, arg_sh = (), ()
                 if cfg.is_encdec:
+                    enc_in = batch["enc_embeds"][:b]
                     enc = jax.jit(lambda p, e: T._apply_encoder(p, cfg, e),
-                                  in_shardings=(p_sh, b_sh["enc_embeds"]))
-                    args = (enc(params, batch["enc_embeds"]),)
-                    arg_sh = (b_sh["enc_embeds"],)
+                                  in_shardings=(p_sh, split(enc_in)))
+                    args = (enc(params, enc_in),)
+                    arg_sh = (split(enc_in),)
                 serve = jax.jit(make_serve_step(cfg),
                                 in_shardings=(p_sh, cache_sh, split(tok),
                                               rep) + arg_sh)
-                l1, cache = serve(params, cache, tok, jnp.int32(0), *args)
-                l2, _ = serve(params, cache, tok + 1, jnp.int32(1), *args)
-                res["serve"] = [np.asarray(l1), np.asarray(l2)]
+                res["serve"] = []
+                for i, pos in enumerate(inp["positions"]):
+                    lg, cache = serve(params, cache, tok + i, jnp.int32(pos),
+                                      *args)
+                    res["serve"].append(np.asarray(lg))
     except Exception:
         res["error"] = traceback.format_exc()[-3000:]
 pickle.dump(out, open(d + "/reference.pkl", "wb"))
-""" % {"lr": LR, "b": B, "cache": CACHE_LEN}
+""" % {"lr": LR, "cache": CACHE_LEN}
 
 PORT = """
-import pickle, sys
+import pickle, sys, traceback
 import numpy as np, torch, torch.distributed as dist
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_reference
 from repro_torch.distributed.sharding import (P, activation_sharding,
-    distribute, distribute_model, full)
+    distribute, distribute_model, dp_entry, full)
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
@@ -134,59 +147,72 @@ from repro_torch.optim import adamw_init
 rank, d = int(sys.argv[1]), sys.argv[2]
 dist.init_process_group("gloo", init_method="file://" + d + "/store",
                         rank=rank, world_size=4)
-mesh = make_smoke_mesh((2, 2), ("data", "model"), device_type="cpu")
 inp = pickle.load(open(d + "/inputs.pkl", "rb"))
+lay = inp["layout"]
+mesh = make_smoke_mesh(inp["mesh"], ("data", "model"), device_type="cpu")
 out = {}
 
-def lay(v):
-    t = torch.from_numpy(v)
+def put(v):
+    t = torch.from_numpy(v) if isinstance(v, np.ndarray) else v
     t = t.long() if t.dtype == torch.int32 else t
-    return distribute(t, P("data"), mesh)
+    return distribute(t, P(dp_entry(mesh, t.shape[0])), mesh)
 
 for arch in inp["archs"]:
     res = out[arch] = {}
-    cfg = get_config(arch, smoke=True)
-    batch = {k: lay(v) for k, v in inp["batches"][arch].items()}
-    feed = {k: v for k, v in batch.items() if k != "labels"}
+    try:
+        cfg = get_config(arch, smoke=True)
+        batch = {k: put(v) for k, v in inp["batches"][arch].items()}
+        feed = {k: v for k, v in batch.items() if k != "labels"}
 
-    def model():
-        return distribute_model(params_from_reference(
-            inp["params"][arch], cfg, device="cpu"), mesh)
+        def model():
+            return distribute_model(params_from_reference(
+                inp["params"][arch], cfg, device="cpu"), mesh)
 
-    with activation_sharding(mesh):
-        res["prefill"] = full(make_prefill_step(cfg)(model(), feed)).numpy()
-        m = model().requires_grad_(True)
-        res["placements"] = {k: [repr(q) for q in v.placements]
-                             for k, v in m.named_parameters()}
-        m, _, metrics = make_train_step(cfg, lr=%(lr)r)(m, adamw_init(m),
-                                                        batch)
-        res["train"] = {"params": {k: full(v).detach().numpy()
-                                   for k, v in m.state_dict().items()},
-                        "loss": float(metrics["loss"]),
-                        "grad_norm": float(metrics["grad_norm"])}
-        if arch in inp["decode"]:
-            m = model()
-            cache = T.init_cache(cfg, %(b)d, %(cache)d, torch.float32,
-                                 device="cpu")
-            cache = [{k: distribute(t, sh[k], mesh) for k, t in c.items()}
-                     for c, sh in zip(cache, S.cache_shardings(cfg, cache,
-                                                               mesh))]
-            tok = batch["tokens"][:, :1]
-            with torch.no_grad():
-                enc_out = (T.apply_encoder(m, cfg, batch["enc_embeds"])
-                           if cfg.is_encdec else None)
-                serve = make_serve_step(cfg)
-                l1, cache = serve(m, cache, tok, 0, enc_out)
-                l2, cache = serve(m, cache, tok + 1, 1, enc_out)
-            res["serve"] = [full(l1).numpy(), full(l2).numpy()]
-            res["cache_placements"] = [
-                {k: [repr(q) for q in t.placements] for k, t in c.items()}
-                for c in cache]
+        with activation_sharding(mesh, seq_sharded=lay["seq"],
+                                 attn_seq_parallel=lay["attn_sp"],
+                                 residual_seq_parallel=lay["sp"]):
+            if "prefill" in inp["steps"]:
+                res["prefill"] = full(make_prefill_step(cfg)(model(),
+                                                             feed)).numpy()
+            if "train" in inp["steps"]:
+                m = model().requires_grad_(True)
+                res["placements"] = {k: [repr(q) for q in v.placements]
+                                     for k, v in m.named_parameters()}
+                m, _, metrics = make_train_step(cfg, lr=%(lr)r)(
+                    m, adamw_init(m), batch)
+                res["train"] = {"params": {
+                    k: full(v).detach().numpy()
+                    for k, v in m.state_dict().items()},
+                                "loss": float(metrics["loss"]),
+                                "grad_norm": float(metrics["grad_norm"])}
+            if arch in inp["decode"]:
+                m, b = model(), inp["decode_batch"]
+                cache = T.init_cache(cfg, b, %(cache)d, torch.float32,
+                                     device="cpu")
+                cache = [{k: distribute(t, sh[k], mesh) for k, t in c.items()}
+                         for c, sh in zip(cache, S.cache_shardings(
+                             cfg, cache, mesh, seq_sharded=lay["cache_seq"]))]
+                tok = put(inp["batches"][arch]["tokens"][:b, :1])
+                res["serve"] = []
+                with torch.no_grad():
+                    enc_out = (T.apply_encoder(m, cfg, put(
+                        inp["batches"][arch]["enc_embeds"][:b]))
+                        if cfg.is_encdec else None)
+                    serve = make_serve_step(cfg)
+                    for i, pos in enumerate(inp["positions"]):
+                        lg, cache = serve(m, cache, tok + i, pos, enc_out)
+                        res["serve"].append(full(lg).numpy())
+                res["cache_placements"] = [
+                    {k: [repr(q) for q in t.placements] for k, t in c.items()}
+                    for c in cache]
+    except Exception:
+        # the ranks raise alike (a sharding rule), and go on to the next
+        res["error"] = traceback.format_exc()[-3000:]
 if rank == 0:
     pickle.dump(out, open(d + "/port.pkl", "wb"))
 dist.barrier()
 dist.destroy_process_group()
-""" % {"lr": LR, "b": B, "cache": CACHE_LEN}
+""" % {"lr": LR, "cache": CACHE_LEN}
 
 
 def family_batch(cfg, seed: int) -> dict:
@@ -204,10 +230,30 @@ def family_batch(cfg, seed: int) -> dict:
     return b
 
 
-def run_families(d: str, archs, decode=()) -> tuple:
-    """Both packages' 2 x 2 runs of ``archs`` side by side (``decode``: the
-    archs that also take two serve steps): (inputs, reference, port)."""
+# The default layout: ``activation_sharding(mesh)``'s, and the caches by
+# ``cache_shardings``.  ``seq``, ``attn_sp`` and ``sp`` are its
+# ``seq_sharded``, ``attn_seq_parallel`` and ``residual_seq_parallel``;
+# ``cache_seq`` is ``cache_shardings``' ``seq_sharded`` (the reference's
+# dry-run sets both ``seq``s for its long_500k cells).
+DEFAULT_LAYOUT = {"seq": False, "attn_sp": False, "sp": False,
+                  "cache_seq": False}
+
+
+def run_families(d: str, archs, decode=(), *, layout=None, ref_archs=None,
+                 steps=("prefill", "train"), decode_batch=B,
+                 positions=(0, 1), mesh=(2, 2)) -> tuple:
+    """Both packages' runs of ``archs`` side by side on a ``mesh`` of four
+    ranks under ``layout`` (DEFAULT_LAYOUT's keys; those it leaves out
+    take their defaults): ``steps`` of each arch (the prefill, one train
+    step) and, for the archs in ``decode``, serve steps at ``positions``
+    on ``decode_batch`` rows (token ``tokens[:, 0] + i`` at the i-th).
+    The reference runs only ``ref_archs`` (None: all of ``archs``).
+    Returns (inputs, reference, port)."""
     inputs = {"archs": list(archs), "decode": list(decode),
+              "ref_archs": list(archs if ref_archs is None else ref_archs),
+              "layout": {**DEFAULT_LAYOUT, **(layout or {})},
+              "steps": list(steps), "decode_batch": decode_batch,
+              "positions": list(positions), "mesh": tuple(mesh),
               "params": {}, "batches": {}}
     for i, arch in enumerate(archs):
         cfg = jconfigs.get_config(arch, smoke=True)
@@ -230,6 +276,12 @@ def run_families(d: str, archs, decode=()) -> tuple:
         assert p.returncode == 0, err[-3000:]
     load = lambda n: pickle.load(open(os.path.join(d, n), "rb"))  # noqa: E731
     return inputs, load("reference.pkl"), load("port.pkl")
+
+
+def ran(port, arch) -> dict:
+    """The port's readings of ``arch``, which must not have raised."""
+    assert "error" not in port[arch], port[arch]["error"]
+    return port[arch]
 
 
 def port_inputs(inputs, arch):
@@ -262,27 +314,56 @@ def unsharded_train(inputs, arch) -> tuple:
             {k: g.numpy() for k, g in grads.items()})
 
 
-def unsharded_decode(inputs, arch) -> list:
-    """The port's two unsharded serve steps' logits."""
+def unsharded_decode(inputs, arch, lose_writes: bool = False) -> list:
+    """The port's unsharded serve steps' logits, at ``run_families``'
+    ``decode_batch`` and ``positions``.  ``lose_writes``: every cache
+    zeroed after each step, so that no step sees an earlier one's entries
+    (a control: a sharded cache whose writes land nowhere)."""
     cfg, model, batch = port_inputs(inputs, arch)
-    cache = T.init_cache(cfg, B, CACHE_LEN, torch.float32, device="cpu")
-    tok = batch["tokens"][:, :1]
+    b = inputs["decode_batch"]
+    cache = T.init_cache(cfg, b, CACHE_LEN, torch.float32, device="cpu")
+    tok = batch["tokens"][:b, :1]
+    out = []
     with torch.no_grad():
-        enc_out = (T.apply_encoder(model, cfg, batch["enc_embeds"])
+        enc_out = (T.apply_encoder(model, cfg, batch["enc_embeds"][:b])
                    if cfg.is_encdec else None)
         serve = steps.make_serve_step(cfg)
-        l1, cache = serve(model, cache, tok, 0, enc_out)
-        l2, _ = serve(model, cache, tok + 1, 1, enc_out)
-    return [l1.numpy(), l2.numpy()]
+        for i, pos in enumerate(inputs["positions"]):
+            lg, cache = serve(model, cache, tok + i, pos, enc_out)
+            out.append(lg.numpy())
+            if lose_writes:
+                for c in cache:
+                    for t in c.values():
+                        t.zero_()
+    return out
+
+
+def hold_decode(runs, arch):
+    """The sharded serve steps' logits against the reference's (where it
+    ran ``arch``) and the port's unsharded ones within MODEL_TOL.
+    Control: the unsharded steps with every write lost
+    (``unsharded_decode(lose_writes=True)``) must fail the check."""
+    inputs, ref, port = runs
+    got = ran(port, arch)["serve"]
+    assert len(got) == len(inputs["positions"]) > 1
+    if arch in ref:
+        for g, want in zip(got, ref[arch]["serve"], strict=True):
+            np.testing.assert_allclose(g, want, atol=MODEL_TOL,
+                                       rtol=MODEL_TOL)
+    for g, own in zip(got, unsharded_decode(inputs, arch), strict=True):
+        np.testing.assert_allclose(g, own, atol=MODEL_TOL, rtol=MODEL_TOL)
+    lost = unsharded_decode(inputs, arch, lose_writes=True)
+    assert not np.allclose(got[-1], lost[-1], atol=MODEL_TOL, rtol=MODEL_TOL)
 
 
 def hold_prefill(runs, arch):
-    """The sharded prefill's logits against the reference's 2 x 2 prefill
-    and the port's unsharded one within MODEL_TOL.  Control: the
-    unsharded prefill with the last token changed."""
+    """The sharded prefill's logits against the reference's prefill (where
+    it ran ``arch``) and the port's unsharded one within MODEL_TOL.
+    Control: the unsharded prefill with the last token changed."""
     inputs, ref, port = runs
-    got, own = port[arch]["prefill"], unsharded_prefill(inputs, arch)
-    if "error" not in ref[arch]:
+    got = ran(port, arch)["prefill"]
+    own = unsharded_prefill(inputs, arch)
+    if arch in ref and "error" not in ref[arch]:
         np.testing.assert_allclose(got, ref[arch]["prefill"], atol=MODEL_TOL,
                                    rtol=MODEL_TOL)
     np.testing.assert_allclose(got, own, atol=MODEL_TOL, rtol=MODEL_TOL)
@@ -294,10 +375,12 @@ def hold_prefill(runs, arch):
 
 
 def hold_train(runs, arch):
-    """One sharded train step against the reference's 2 x 2 step and the
-    port's unsharded one (``_hold_train_step``, with its control)."""
+    """One sharded train step against the reference's step (where it ran
+    ``arch``) and the port's unsharded one (``_hold_train_step``, with its
+    control)."""
     inputs, ref, port = runs
-    _hold_train_step(port[arch]["train"], ref[arch]["train"],
+    _hold_train_step(ran(port, arch)["train"],
+                     ref.get(arch, {}).get("train"),
                      unsharded_train(inputs, arch),
                      configs.get_config(arch, smoke=True), inputs["params"],
                      arch)
@@ -307,7 +390,7 @@ def hold_split(runs, arch):
     """The family's weight ``SPLIT[arch]`` is split over "model" (the
     mesh's second axis) in the sharded train step's model."""
     _, _, port = runs
-    pl = port[arch]["placements"]
+    pl = ran(port, arch)["placements"]
     assert pl[SPLIT[arch]][1].startswith("Shard"), pl[SPLIT[arch]]
     assert any(q[0].startswith("Shard") for q in pl.values())
 

@@ -1,0 +1,43 @@
+"""Every model family's prefill and train step with context-parallel
+queries (``activation_sharding(attn_seq_parallel=True)``, the reference
+dry-run's ``attn_sp``, on by default there wherever the head count does
+not divide "model": the queries' sequence over "model", the keys and
+values whole), on a 2 x 2 ("data", "model") mesh of four gloo processes,
+four rows of 16 tokens.
+
+Each family's last-position logits and train step are held against the
+port's unsharded steps (``test_torch_sharded_dense.hold_prefill`` and
+``hold_train``, each with its control), and gemma3's against the
+reference's 4-device steps of the same layout.  The machinery is
+``test_torch_sharded_dense.py``'s.
+"""
+import pytest
+
+from repro_torch.configs import ARCHS
+from test_torch_sharded_dense import hold_prefill, hold_train, run_families
+
+REF_ARCHS = ("gemma3_1b",)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return run_families(str(tmp_path_factory.mktemp("attn_sp")), ARCHS,
+                        layout={"attn_sp": True}, ref_archs=REF_ARCHS)
+
+
+def test_reference_steps_ran(runs):
+    """The reference's 2 x 2 prefill and train step ran for gemma3 in
+    this layout (none raised)."""
+    _, ref, _ = runs
+    assert {a: ref[a].get("error") for a in REF_ARCHS} == dict.fromkeys(
+        REF_ARCHS)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_attn_seq_parallel(runs, arch):
+    hold_prefill(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_attn_seq_parallel(runs, arch):
+    hold_train(runs, arch)

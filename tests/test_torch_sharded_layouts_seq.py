@@ -1,0 +1,44 @@
+"""Every model family's prefill and train step with the sequence split
+over "data" (``activation_sharding(seq_sharded=True)``, the reference
+dry-run's long-context layout of the hidden states), on a 2 x 2 ("data",
+"model") mesh of four gloo processes, four rows of 16 tokens.
+
+The MoE families (dbrx, deepseek, jamba) flatten the batch and the split
+sequence into their dispatch groups, which must be the reference's groups
+under every layout, and take the gradients back through that flatten.
+Each family's last-position logits and train step are held against the
+port's unsharded steps (``test_torch_sharded_dense.hold_prefill`` and
+``hold_train``, each with its control), and dbrx's and jamba's against the
+reference's 4-device steps of the same layout.  The machinery is
+``test_torch_sharded_dense.py``'s.
+"""
+import pytest
+
+from repro_torch.configs import ARCHS
+from test_torch_sharded_dense import hold_prefill, hold_train, run_families
+
+REF_ARCHS = ("dbrx_132b", "jamba_1_5_large_398b")
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return run_families(str(tmp_path_factory.mktemp("seq_sharded")), ARCHS,
+                        layout={"seq": True}, ref_archs=REF_ARCHS)
+
+
+def test_reference_steps_ran(runs):
+    """The reference's 2 x 2 prefill and train step ran for dbrx and
+    jamba in this layout (none raised)."""
+    _, ref, _ = runs
+    assert {a: ref[a].get("error") for a in REF_ARCHS} == dict.fromkeys(
+        REF_ARCHS)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_seq_sharded(runs, arch):
+    hold_prefill(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_seq_sharded(runs, arch):
+    hold_train(runs, arch)
