@@ -261,6 +261,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    gloo processes on the host's CPU, logged as a host run of this
    machine's PyTorch, not a card run; one line a config and layout, and
    any config that raises or misses a bound fails the script;
+13f. 13e's steps on the reference's two-pod mesh, (2, 2, 2) ("pod",
+   "data", "model"), whose DP entry is ("pod", "data"): eight processes
+   of this script with ``--family-worker ... --family-phase 13f`` as gloo
+   processes on the host's CPU (eight NCCL ranks would need eight cards),
+   logged as a host run of this machine's PyTorch, and the unsharded run;
+   ``train(mesh=)`` on eight rows a step as two microbatches, so that each
+   microbatch's rows are split over pod x data; all four layouts at 13e's
+   bounds; and ``compress_pod_gradients`` over the mesh's own "pod" group,
+   each rank's gradients of its own row, bitwise the int8 sum of the two
+   pods' payloads computed locally (over the "data" group, the control,
+   they must differ);
 14. the kernels line (JSON; each kernel also with its launches in config
    A, in the disk tier, in calibration, in the tuned factor, in the
    served pair, through the shim and in phase 10e's training steps, all
@@ -4684,12 +4695,26 @@ FAMILY_MODEL_TOL = 1e-4
 FAMILY_TIMEOUT_S = 300
 # the workers' whole run (about two and a half minutes as host processes)
 FAMILY_DEADLINE_S = 900
+# Phase 13f: 13e's steps on the reference's two-pod mesh.  POD_TRAIN: eight
+# rows a step as two microbatches, so that a microbatch's four rows split
+# over pod x data (13e's two would leave the batch whole there).
+# Its deadline is about twice its longest run (239.3 s): a hang there
+# costs the script at most that.
+POD_TRAIN = (8, 64, 2)
+POD_DEADLINE_S = 480
+# a phase's mesh shape, axes, train shape and the deadline of its workers
+FAMILY_PHASES = {"13e": ((2, 2), ("data", "model"), FAMILY_TRAIN,
+                         FAMILY_DEADLINE_S),
+                 "13f": ((2, 2, 2), ("pod", "data", "model"), POD_TRAIN,
+                         POD_DEADLINE_S)}
 
 
-def family_steps(arch: str, dev, seed: int, mesh=None) -> dict:
-    """13e's steps of one smoke config, on ``mesh`` or (None) whole on
-    ``dev``.  In the default layout: ``train`` for FAMILY_STEPS steps of
-    two microbatches (seamless: its train step on the pipeline's batches
+def family_steps(arch: str, dev, seed: int, mesh=None,
+                 train_shape=FAMILY_TRAIN) -> dict:
+    """13e's and 13f's steps of one smoke config, on ``mesh`` or (None)
+    whole on ``dev``; ``train_shape`` is (rows a step, sequence,
+    microbatches).  In the default layout: ``train`` for FAMILY_STEPS
+    steps (seamless: its train step on the pipeline's batches
     with seeded encoder frames, which ``train`` does not draw), one
     prefill with the family's frontend or encoder inputs, and serve steps
     at FAMILY_POSITIONS on caches laid out by ``cache_shardings``.  Then,
@@ -4714,7 +4739,7 @@ def family_steps(arch: str, dev, seed: int, mesh=None) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_init
     cfg = get_config(arch, smoke=True)
-    rows, seq, accum = FAMILY_TRAIN
+    rows, seq, accum = train_shape
     extra = model_inputs(cfg, torch.Generator().manual_seed(seed), rows,
                          "cpu")
     # the prefill and the decode at a microbatch's rows: the shapes whose
@@ -4826,18 +4851,22 @@ def family_steps(arch: str, dev, seed: int, mesh=None) -> dict:
     return out
 
 
-def family_worker(rank: str, d: str, backend: str, seed: int) -> int:
-    """One process of 13e: ``rank`` 0-3 of the 2 x 2 mesh (NCCL on card
-    ``rank``, or gloo on the CPU), or "plain", the same steps unsharded
-    (on the first card, or the CPU).  Every config's steps run; one that
-    raises is recorded with its traceback, and the ranks meet at a barrier
-    before the next.  Rank 0 and "plain" write their readings to ``d``."""
+def family_worker(rank: str, d: str, backend: str, seed: int,
+                  phase: str = "13e") -> int:
+    """One process of ``phase`` (FAMILY_PHASES): ``rank`` of its mesh
+    (NCCL on card ``rank``, or gloo on the CPU), or "plain", the same steps
+    unsharded (on the first card, or the CPU).  Every config's steps run;
+    one that raises is recorded with its traceback, and the ranks meet at
+    a barrier before the next.  On a mesh with "pod", then the compression
+    over its "pod" group (``pod_compression``).  Rank 0 and "plain" write
+    their readings to ``d``."""
     import datetime
     import traceback
 
     import torch.distributed as dist
     from repro_torch.configs import ARCHS
     from repro_torch.launch.mesh import make_smoke_mesh
+    shape, axes, train_shape, _ = FAMILY_PHASES[phase]
     on_card = backend == "nccl"
     r = 0 if rank == "plain" else int(rank)
     dev = torch.device("cuda", r) if on_card else torch.device("cpu")
@@ -4846,23 +4875,72 @@ def family_worker(rank: str, d: str, backend: str, seed: int) -> int:
         if on_card:
             torch.cuda.set_device(dev)
         dist.init_process_group(
-            backend, init_method=f"file://{d}/store", rank=r, world_size=4,
+            backend, init_method=f"file://{d}/store", rank=r,
+            world_size=math.prod(shape),
             timeout=datetime.timedelta(seconds=FAMILY_TIMEOUT_S))
-        mesh = make_smoke_mesh((2, 2), ("data", "model"),
-                               device_type=dev.type)
+        mesh = make_smoke_mesh(shape, axes, device_type=dev.type)
     out = {"torch": torch.__version__}
     for arch in ARCHS:
         try:
-            out[arch] = family_steps(arch, dev, seed, mesh)
+            out[arch] = family_steps(arch, dev, seed, mesh, train_shape)
         except Exception:
             out[arch] = {"error": traceback.format_exc()[-6000:]}
         if mesh is not None:
             dist.barrier()
+    if mesh is not None and "pod" in axes:
+        try:
+            out["pod_compression"] = pod_compression(mesh, dev, seed)
+        except Exception:
+            out["pod_compression"] = {"error": traceback.format_exc()[-6000:]}
     if rank in ("0", "plain"):
         torch.save(out, f"{d}/{rank}.pt")
     if mesh is not None:
         dist.destroy_process_group()
     return 0
+
+
+def pod_compression(mesh, dev, seed: int) -> list:
+    """13f's cross-pod compression on the mesh's own "pod" group: each
+    rank's gradients of its own row of a qwen3 smoke batch (a whole model,
+    so that the two pods' payloads differ), compressed over
+    ``mesh.get_group("pod")``, against ``_local_pod_sum`` of the two pods'
+    gradients; the same over the "data" group (the control) must differ.
+    Returns every rank's readings."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.compress import compress_pod_gradients, ef_init
+    cfg = get_config("qwen3-14b", smoke=True)
+    pod, data, _ = mesh.get_coordinate()
+    row = pod * mesh.size(1) + data
+    batch = device_batch(next(DataPipeline(
+        cfg.vocab, FAMILY_TRAIN[1], mesh.size(0) * mesh.size(1),
+        seed=seed)), dev)
+    params = T.init_model(cfg, seed, dev).requires_grad_(True)
+    _, grads = loss_and_grads(params, cfg, {k: v[row:row + 1]
+                                            for k, v in batch.items()})
+    grads = {k: g.detach() for k, g in grads.items()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {k: g.cpu() for k, g in grads.items()})
+    peers = dist.get_process_group_ranks(mesh.get_group("pod"))
+    want = {k: _local_pod_sum([every[p][k] for p in peers]) for k in grads}
+    got = {axis: compress_pod_gradients(grads, ef_init(grads),
+                                        group=mesh.get_group(axis))[0]
+           for axis in ("pod", "data")}
+    mine = {"peers": peers, "tensors": len(grads),
+            "entries": sum(g.numel() for g in grads.values()),
+            "bitwise": all(torch.equal(got["pod"][k].cpu(), want[k])
+                           for k in grads),
+            "control_differs": any(not torch.equal(got["data"][k].cpu(),
+                                                   want[k]) for k in grads),
+            "pods_differ": any(not torch.equal(*(every[p][k] for p in peers))
+                               for k in grads)}
+    readings = [None] * dist.get_world_size()
+    dist.all_gather_object(readings, mine)
+    return readings
 
 
 def _rel_over(got, want, tol: float) -> tuple:
@@ -4880,31 +4958,39 @@ def _decode_line(serve: list, where: str = "") -> str:
                    for p, (e, o) in zip(FAMILY_POSITIONS, serve))
 
 
-def sharded_families(seed: int, card: str) -> dict:
-    """13e: the ten smoke configs' sharded steps (``family_worker``, four
-    ranks and the unsharded run as five processes of this script), each
+def sharded_families(seed: int, card: str, phase: str = "13e") -> dict:
+    """13e (2 x 2) or 13f (2 x 2 x 2, with "pod"): the ten smoke configs'
+    sharded steps (``family_worker``, a process of this script a rank of
+    the phase's mesh and one for the unsharded run), each
     held against its unsharded run: losses within FAMILY_SELF_TOL
     relative, prefill and decode logits within FAMILY_MODEL_TOL; a weight
     of each config split over "model"; then each of FAMILY_LAYOUTS' train
     step (loss and grad_norm within FAMILY_SELF_TOL relative), prefill and,
-    under seq_sharded, one-row decode against the unsharded ones.  One line
-    a config and layout."""
+    under seq_sharded, one-row decode against the unsharded ones; on a
+    mesh with "pod", the compression over its "pod" group.  One line a
+    config and layout."""
     import os
     import tempfile
     from repro_torch.configs import ARCHS
-    nccl = torch.cuda.device_count() >= 4
-    where = (f"four cards over NCCL [{card}]" if nccl else
-             "host run: four gloo processes on this machine's CPU, not a "
-             "card run")
+    shape, axes, _, deadline_s = FAMILY_PHASES[phase]
+    world = math.prod(shape)
+    count = {4: "four", 8: "eight"}[world]
+    tag = "sharded families" if phase == "13e" else "pod families"
+    nccl = torch.cuda.device_count() >= world
+    where = (f"{count} cards over NCCL [{card}]" if nccl else
+             f"host run: {count} gloo processes on this machine's CPU, not a "
+             "card run" + ("" if world <= 4 else
+                           f" ({count} NCCL ranks would need {count} cards)"))
     env = dict(os.environ, OMP_NUM_THREADS="1")
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         procs = {r: subprocess.Popen(
             [sys.executable, str(Path(__file__)), "--family-worker", r, d,
-             "nccl" if nccl else "gloo", "--seed", str(seed)], env=env,
+             "nccl" if nccl else "gloo", "--family-phase", phase,
+             "--seed", str(seed)], env=env,
             stderr=open(f"{d}/{r}.err", "w"))
-            for r in ("plain", "0", "1", "2", "3")}
-        deadline = time.perf_counter() + FAMILY_DEADLINE_S
+            for r in ("plain", *map(str, range(world)))}
+        deadline = time.perf_counter() + deadline_s
         codes = {}
         for r, p in procs.items():
             try:
@@ -4917,20 +5003,21 @@ def sharded_families(seed: int, card: str) -> dict:
                 p.kill()
                 p.wait()
             if codes[r] != 0:
-                log(f"sharded families: worker {r} exited {codes[r]}:\n"
+                log(f"{tag}: worker {r} exited {codes[r]}:\n"
                     f"{Path(f'{d}/{r}.err').read_text()[-3000:]}")
-        require(set(codes.values()) == {0}, f"13e workers exited {codes}")
+        require(set(codes.values()) == {0},
+                f"{phase} workers exited {codes}")
         got, want = (torch.load(f"{d}/{r}.pt", weights_only=False)
                      for r in ("0", "plain"))
     secs = time.perf_counter() - t_phase
-    log(f"sharded families: 2 x 2 ('data', 'model'), {where}, torch "
+    log(f"{tag}: {' x '.join(map(str, shape))} {axes}, {where}, torch "
         f"{got['torch']}, {secs:.1f}s")
     out, failed = {"where": where, "torch": got["torch"], "seconds": secs,
                    "nccl": nccl}, []
     for arch in ARCHS:
         g, w = got[arch], want[arch]
         if "error" in g or "error" in w:
-            log(f"sharded families: {arch} [{got['torch']}] raised:\n"
+            log(f"{tag}: {arch} [{got['torch']}] raised:\n"
                 f"{g.get('error') or w.get('error')}")
             out[arch] = {"error": (g.get("error") or w["error"])[-600:]}
             failed.append(arch)
@@ -4943,7 +5030,7 @@ def sharded_families(seed: int, card: str) -> dict:
         ok = (rel <= FAMILY_SELF_TOL and lover <= 1
               and all(o <= 1 for _, o in serve) and len(g["model_split"]) > 0
               and len(g["losses"]) == FAMILY_STEPS)
-        log(f"sharded families: {arch} [torch {got['torch']}] losses "
+        log(f"{tag}: {arch} [torch {got['torch']}] losses "
             f"{g['losses']} against {w['losses']} (max relative {rel:.3e}, "
             f"bound {FAMILY_SELF_TOL}); prefill logits max|diff| {lerr:.3e} "
             f"({lover:.3f} of the bound, atol = rtol = {FAMILY_MODEL_TOL})"
@@ -4963,7 +5050,7 @@ def sharded_families(seed: int, card: str) -> dict:
         for name in FAMILY_LAYOUTS:
             lg = g["layouts"][name]
             if "error" in lg:
-                log(f"sharded families: {arch} under {name} "
+                log(f"{tag}: {arch} under {name} "
                     f"[{got['torch']}] raised:\n{lg['error']}")
                 out[arch]["layouts"][name] = {"error": lg["error"][-600:]}
                 ok = False
@@ -4978,7 +5065,7 @@ def sharded_families(seed: int, card: str) -> dict:
                          strict=True)]
             ok_l = (max(step.values()) <= FAMILY_SELF_TOL and lover <= 1
                     and all(o <= 1 for _, o in serve))
-            log(f"sharded families: {arch} under {name} [torch "
+            log(f"{tag}: {arch} under {name} [torch "
                 f"{got['torch']}] train step loss and grad_norm relative "
                 f"{step['loss']:.3e}, {step['grad_norm']:.3e} (bound "
                 f"{FAMILY_SELF_TOL}); prefill logits max|diff| {lerr:.3e} "
@@ -4993,8 +5080,28 @@ def sharded_families(seed: int, card: str) -> dict:
             ok = ok and ok_l
         if not ok:
             failed.append(arch)
-    require(not failed, f"13e: sharded steps failed or missed their bound "
-            f"for {failed} ({where}, torch {got['torch']})")
+    if "pod" in axes:
+        out["pod_compression"] = pod = got["pod_compression"]
+        stride = world // shape[0]
+        ok = "error" not in pod and all(
+            c["peers"] == list(range(i % stride, world, stride))
+            and c["bitwise"] and c["control_differs"] and c["pods_differ"]
+            for i, c in enumerate(pod))
+        if "error" in pod:
+            log(f"{tag}: the pod compression raised:\n{pod['error']}")
+        else:
+            log(f"{tag}: compress_pod_gradients over the mesh's 'pod' group "
+                f"[torch {got['torch']}], each rank's {pod[0]['tensors']} "
+                f"qwen3 smoke gradients of its own row "
+                f"({pod[0]['entries']:,} entries): bitwise the local int8 "
+                f"sum of the two pods' payloads on "
+                f"{sum(c['bitwise'] for c in pod)} of {world} ranks; over "
+                f"the 'data' group (control) differs on "
+                f"{sum(c['control_differs'] for c in pod)} of {world}")
+        if not ok:
+            failed.append("pod_compression")
+    require(not failed, f"{phase}: sharded steps failed or missed their "
+            f"bound for {failed} ({where}, torch {got['torch']})")
     return out
 
 
@@ -5010,6 +5117,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--family-worker", nargs=3,
                     metavar=("RANK", "DIR", "BACKEND"), help=argparse.SUPPRESS)
+    ap.add_argument("--family-phase", default="13e", choices=FAMILY_PHASES,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.sharded_worker:
         sys.path.insert(0, str(ROOT / "src"))
@@ -5017,7 +5126,8 @@ def main() -> int:
                               args.sharded_worker[1], args.seed)
     if args.family_worker:
         sys.path.insert(0, str(ROOT / "src"))
-        return family_worker(*args.family_worker, args.seed)
+        return family_worker(*args.family_worker, args.seed,
+                             args.family_phase)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "a card", file=sys.stderr)
@@ -5111,6 +5221,8 @@ def main() -> int:
     lap("13 sharded")
     shard["families"] = sharded_families(args.seed, card)   # 13e
     lap("13e sharded families")
+    shard["pod_families"] = sharded_families(args.seed, card, "13f")
+    lap("13f pod families")
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -168,12 +168,33 @@ def like_param(g, p):
     return g
 
 
+def _one_split_a_dim(x):
+    """A DTensor ``x`` with each dimension split over at most one mesh axis:
+    of a dimension split over several (the batch over "pod" and "data"),
+    the innermost split is kept and the outer ones gathered."""
+    pl = list(x.placements)
+    for i, q in enumerate(pl):
+        if q.is_shard() and any(r.is_shard(q.dim) for r in pl[i + 1:]):
+            pl[i] = Replicate()
+    return x if pl == list(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
 class _Rows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, tokens):
         ctx.save_for_backward(tokens)
         ctx.shape = tuple(table.shape)
-        return table[tokens]
+        one = _one_split_a_dim(tokens)
+        out = table[one]
+        if one is tokens:
+            return out
+        # the rows split again as the tokens were (a local chunk), so that
+        # the gradient comes back split as they are and is not gathered
+        pl = tuple(t if q == Replicate() and not o.is_shard() else q
+                   for q, o, t in zip(out.placements, one.placements,
+                                      tokens.placements))
+        return out.redistribute(out.device_mesh, pl)
 
     @staticmethod
     def backward(ctx, g):
@@ -208,7 +229,10 @@ def rows(table, tokens):
     the tokens' dimensions leaves partial sums of the table, a split of
     the features a split table.  PyTorch 2.11's sharding rule for that
     ``index_put`` maps a gradient split over its batch onto the table as
-    an unnormalised ``Shard(-1)`` and raises."""
+    an unnormalised ``Shard(-1)`` and raises.  And its rule for the gather
+    refuses tokens with a dimension split over two mesh axes (the batch
+    over "pod" and "data"): the gather takes them with the outer split
+    gathered (the tokens only, not the table)."""
     if not isinstance(table, DTensor):
         return table[tokens]
     if not isinstance(tokens, DTensor):

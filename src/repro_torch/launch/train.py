@@ -77,11 +77,13 @@ def train(arch: str = "qwen3-14b", smoke: bool = True, steps: int = 100,
     seeded weights on ``device``; returns (the model, the losses of the
     steps run here).
 
-    ``mesh`` (a ``DeviceMesh`` on ("data", "model"), e.g.
-    ``launch.mesh.make_smoke_mesh``): the parameters become DTensors laid
-    out by ``params_shardings``, the f32 moments follow them (Q8 moments
-    are whole on every rank, the reference's replicated ones), each batch
-    is split over "data", and the step runs under
+    ``mesh`` (a ``DeviceMesh`` on ("data", "model"), or the two-pod
+    ("pod", "data", "model"), e.g. ``launch.mesh.make_smoke_mesh``): the
+    parameters become DTensors laid out by ``params_shardings``, the f32
+    moments follow them (Q8 moments are whole on every rank, the
+    reference's replicated ones), each batch is split over the DP axes
+    ("data", or "pod" and "data"; whole where they do not divide its
+    rows), and the step runs under
     ``activation_sharding(mesh)``.  Every rank draws the same weights and
     batches from the seed.  A checkpoint then holds each process's own
     blocks (``host_<rank>.npz``) and restores into a run on the same

@@ -31,8 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import (divisible, moe_group_count,
-                                              shard_act)
+from repro_torch.distributed.sharding import (divisible, in_layout,
+                                              moe_group_count, shard_act)
 
 from .layers import apply_mlp, dense, dtype_of
 
@@ -159,6 +159,14 @@ def _moe_sharded(p: MoE, cfg, xt, gates, idx, groups: int, cap: int):
     t, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     tl = t // groups
+    # where the DP axes split the tokens finer than the groups ("pod" and
+    # "data"), ``divisible`` gathers "pod", and its backward leaves the
+    # gradient gathered.  The gates' gradient comes back in their own
+    # layout (a local chunk; nothing where the groups need no gather): in
+    # the gathered one, the router's backward split the tokens' gradient
+    # over "model" too, which the flatten's view in ``apply_moe`` cannot
+    # take back
+    gates = in_layout(gates)
     xg = shard_act(divisible(xt, 0, groups).reshape(groups, tl, d),
                    "moe_tokens")
     mesh, pl = xg.device_mesh, xg.placements
@@ -177,8 +185,9 @@ def _moe_sharded(p: MoE, cfg, xt, gates, idx, groups: int, cap: int):
                    gg.reshape(-1, k))
     out = DTensor.from_local(out.reshape(gl, tl, d), mesh, pl,
                              run_check=False)
-    # the gradient coming back may split the tokens over "pod" and "data":
-    # gather what the group count does not divide before the view
+    # the output's gradient comes back in the layout of the hidden states,
+    # which may split the tokens over "pod" and "data": gather what the
+    # group count does not divide before the view
     return divisible(shard_act(out, "moe_tokens").reshape(t, d), 0, groups)
 
 

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import local_block
+from repro_torch.distributed.sharding import like_param, local_block
 
 from .quantized import (Q8, dequantize_q8, dequantize_q8_root4, quantize_q8,
                         quantize_q8_root4)
@@ -90,6 +90,18 @@ def adamw_update(params, grads: dict, state: OptState, lr: float = 1e-4,
                                 weight_decay)
             p.to_local().copy_(local_block(new, p))
             new_m[name], new_v[name] = quantize_q8(mf), quantize_q8_root4(vf)
+            continue
+        if isinstance(p, DTensor):
+            # elementwise: each rank updates its own blocks, with the
+            # gradient and the moments in the parameter's layout
+            g, m, v = (like_param(x, p).to_local() for x in (g, m, v))
+            mf, vf, new = _step(p.to_local(), g, m, v, b1, b2, bc1, bc2,
+                                eps, lr, weight_decay)
+            p.to_local().copy_(new)
+            new_m[name], new_v[name] = (
+                DTensor.from_local(x, p.device_mesh, p.placements,
+                                   run_check=False, shape=p.shape,
+                                   stride=p.stride()) for x in (mf, vf))
             continue
         mf, vf, new = _step(p, g, m, v, b1, b2, bc1, bc2, eps, lr,
                             weight_decay)

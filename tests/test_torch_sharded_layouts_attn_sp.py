@@ -14,15 +14,15 @@ reference's 4-device steps of the same layout.  The machinery is
 import pytest
 
 from repro_torch.configs import ARCHS
-from test_torch_sharded_dense import hold_prefill, hold_train, run_families
+from test_torch_sharded_dense import (SESSION_RUNS, hold_prefill, hold_train,
+                                      session_runs)
 
-REF_ARCHS = ("gemma3_1b",)
+REF_ARCHS = SESSION_RUNS["attn_sp"]["ref_archs"]
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return run_families(str(tmp_path_factory.mktemp("attn_sp")), ARCHS,
-                        layout={"attn_sp": True}, ref_archs=REF_ARCHS)
+    return session_runs(tmp_path_factory, "attn_sp")
 
 
 def test_reference_steps_ran(runs):

@@ -15,19 +15,15 @@ lost).  The machinery is ``test_torch_sharded_dense.py``'s.
 import pytest
 
 from repro_torch.configs import ARCHS
-from test_torch_sharded_dense import hold_decode, run_families
+from test_torch_sharded_dense import (DECODE_REF_ARCHS, hold_decode,
+                                      session_runs)
 
-# the first two positions, either side of the 16-slot blocks' boundary,
-# and the cache's last slot
-POSITIONS = (0, 1, 15, 16, 31)
-REF_ARCHS = ("gemma3_1b", "deepseek_v2_lite_16b")
+REF_ARCHS = DECODE_REF_ARCHS
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return run_families(str(tmp_path_factory.mktemp("decode_32k")), ARCHS,
-                        decode=ARCHS, ref_archs=REF_ARCHS, steps=(),
-                        positions=POSITIONS)
+    return session_runs(tmp_path_factory, "decode_32k")
 
 
 def test_reference_decode_ran(runs):

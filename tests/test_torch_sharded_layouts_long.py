@@ -14,16 +14,13 @@ with its control: every write lost).  The machinery is
 import pytest
 
 from repro_torch.configs import ARCHS
-from test_torch_sharded_dense import hold_decode, run_families
-from test_torch_sharded_layouts_decode import POSITIONS, REF_ARCHS
+from test_torch_sharded_dense import hold_decode, session_runs
+from test_torch_sharded_layouts_decode import REF_ARCHS
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return run_families(str(tmp_path_factory.mktemp("long_500k")), ARCHS,
-                        decode=ARCHS, layout={"seq": True, "cache_seq": True},
-                        ref_archs=REF_ARCHS, steps=(), decode_batch=1,
-                        positions=POSITIONS)
+    return session_runs(tmp_path_factory, "long_500k")
 
 
 def test_reference_decode_ran(runs):

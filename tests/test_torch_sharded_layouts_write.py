@@ -22,8 +22,7 @@ import sys
 import numpy as np
 import pytest
 
-from test_torch_sharded_dense import hold_decode, run_families
-from test_torch_sharded_layouts_decode import POSITIONS
+from test_torch_sharded_dense import POSITIONS, hold_decode, run_families
 from test_torch_sharded_steps import MODEL_TOL, _env
 
 T_CACHE = 8

@@ -17,18 +17,17 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_sharded_dense import (hold_prefill, hold_split, hold_train,
-                                      run_families, unsharded_decode,
-                                      unsharded_prefill)
+from test_torch_sharded_dense import (RECURRENT, hold_prefill, hold_split,
+                                      hold_train, session_runs,
+                                      unsharded_decode, unsharded_prefill)
 from test_torch_sharded_steps import MODEL_TOL
 
-ARCHS = ("mamba2_130m", "jamba_1_5_large_398b", "seamless_m4t_large_v2")
+ARCHS = RECURRENT
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return run_families(str(tmp_path_factory.mktemp("recurrent")), ARCHS,
-                        decode=ARCHS)
+    return session_runs(tmp_path_factory, "recurrent")
 
 
 def test_reference_steps_ran(runs):
